@@ -13,19 +13,27 @@ result line is printed only when every phase passed:
    for sm_90a (in parallel) and prints each one's registers, shared
    memory and spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving shapes plus a ragged case, timed with CUDA events beside
-   the plain version and a one-call PyTorch yardstick;
+   the serving shapes plus ragged (and bf16) cases, timed from the
+   profiler and with CUDA events beside the plain version and a one-call
+   PyTorch yardstick;
 4. slice, fp16 store — writes the paper's 150,000-pair store, opens it
    with ``StorInfer.open`` (flat index, qwen3-1.7b at full width, random
    weights from ``--seed``) and serves a mixed stream through
    ``query_batch`` and ``serve()``/``submit()``, with a §3.1 write-back
-   and delta rebuild;
-5. slice, int8 store — the same stream over an int8 store.
+   and delta rebuild (prefill on B4, decode on B3);
+5. slice, int8 store — the same stream over an int8 store;
+6. slice minilm — the reference's default configuration at paper size:
+   the store written with the port's MiniLM encoder (random weights from
+   ``--seed``), opened with ``embedder="minilm"`` and the default
+   ``index="auto"``, which picks the IVF tier at 150,000 rows, fits it and
+   persists the fit; a second open loads the fit. Hits, then the stream,
+   are served with MiniLM query encoding on B4 (non-causal) and misses
+   prefilled on B4 (causal) and decoded on B3.
 
-The kernels' launch counters are set to 0 just before each slice and read
-just after it: every kernel of the path must have run there. The last
-lines are one JSON line of per-kernel numbers, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The kernels' launch counters are set to 0 just before each serving run
+and read just after it: every kernel of the path must have run there. The
+last lines are one JSON line of per-kernel numbers, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -49,8 +57,18 @@ TOL_DECODE_F32 = 2e-4        # B3 contract with an f32 cache
 # term may differ by one bf16 ulp of p (2^-8 relative); 1e-2 absolute on
 # outputs of unit-scale values.
 TOL_DECODE_BF16 = 1e-2
+TOL_FLASH_F32 = 2e-4         # B4 contract, f32 inputs
+TOL_FLASH_BF16 = 5e-2        # B4 contract, bf16 inputs
 MAX_NEW = 16
 N_STORE = 150000             # the paper's store size (pairs)
+# The minilm slice's hit threshold. With random weights the sinusoidal
+# position table dominates MiniLM's pooled vector, so every pair of texts
+# scores close to 1 (seed 0 on an NVIDIA H100 80GB HBM3, 700.00 W: the
+# unanticipated phrasings' top-1 0.9926-0.9961, the "hi, " prefixed stored
+# queries 0.99978 and up, exact ones 0.99998 and up). 0.999 sits between
+# the two groups, so the unanticipated phrasings miss and the stored ones
+# hit.
+S_TH_MINILM = 0.999
 
 
 class SmokeFailure(Exception):
@@ -185,7 +203,7 @@ def check_mips(torch, ops, ref, q, x, k, tile, label):
     return err
 
 
-def phase_kernels(torch, np, args, dev):
+def phase_kernels(torch, np, args, dev, prompt_len):
     from repro_torch.core.store import quantize_rows
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import mips_topk as mt
@@ -344,9 +362,86 @@ def phase_kernels(torch, np, args, dev):
                      max_abs_err=err3, ms=ms, plain_ms=plain, bound_ms=b_ms,
                      bound_by=b_by, library_ms=lib,
                      calls=(call, plain_call, lib_call)))
+    # -- B4 ------------------------------------------------------------------
+    from repro_torch.kernels import flash_attention as fa
+    lib_fa = ops._lib("flash_attention")
+
+    def b4_case(shape, causal, dt, label):
+        B_, S_, T_, Hq_, Hkv_, D_ = shape
+        qq, kk, vv = (torch.randn(sh, generator=g, device=dev).to(dt)
+                      for sh in ((B_, S_, Hq_, D_), (B_, T_, Hkv_, D_),
+                                 (B_, T_, Hkv_, D_)))
+        got = ops.flash_attention(qq, kk, vv, causal)
+        want = fa.flash_attention_plain(qq, kk, vv, causal)
+        torch.cuda.synchronize()
+        tol = TOL_FLASH_F32 if dt == torch.float32 else TOL_FLASH_BF16
+        e = float((got.float() - want.float()).abs().max())
+        check(got.dtype == dt and torch.allclose(got.float(), want.float(),
+                                                 rtol=tol, atol=tol),
+              f"B4 {label}: differs from plain (max {e})")
+        print(f"B4 {label}: ok max_abs_err={e:.3e} (tol {tol})")
+        return e, (qq, kk, vv)
+
+    def b4_timing(qq, kk, vv, causal, iters, flush_=None):
+        """(kernel, plain, library) device ms, their per-call event ms,
+        and the bound, for one shape."""
+        B_, S_, Hq_, D_ = qq.shape
+        T_ = kk.shape[1]
+        ms_, call_ = timed(torch, lambda: fa.flash_attention_cuda(
+            lib_fa, qq, kk, vv, causal), iters, flush_,
+            "flash_attention_kernel")
+        plain_, plain_call_ = timed(torch, lambda: fa.flash_attention_plain(
+            qq, kk, vv, causal), max(iters // 5, 10), flush_)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qq, kk, vv))
+        lib_, lib_call_ = timed(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters, flush_)
+        # the (query, key) pairs this call must score: all, or the causal
+        # lower triangle
+        pairs = sum(min(i + 1, T_) for i in range(S_)) if causal \
+            else S_ * T_
+        b_ms_, b_by_ = bound(2 * nb(qq) + nb(kk, vv),
+                             4 * B_ * Hq_ * D_ * pairs, F32_FLOPS)
+        return ms_, plain_, lib_, (call_, plain_call_, lib_call_), b_ms_, \
+            b_by_
+
+    enc_shape = (256, 64, 64, 6, 6, 64)         # MiniLM, one 256-row bucket
+    pre_shape = (1, 160, 160, 16, 8, 128)       # qwen3-1.7b prefill, max_len
+    real = (1, prompt_len, prompt_len, 16, 8, 128)
+    err4, enc_in = b4_case(enc_shape, False, torch.float32,
+                           "(a) MiniLM encode B=256 S=T=64 H=6 D=64 f32")
+    _, pre_in = b4_case(pre_shape, True, torch.float32,
+                        "(b) prefill S=T=160 Hq=16 Hkv=8 D=128 f32 causal")
+    _, real_in = b4_case(real, True, torch.float32,
+                         f"(b) prefill at a real prompt's S=T={prompt_len} "
+                         "f32 causal")
+    b4_case((3, 100, 100, 12, 4, 128), True, torch.float32,
+            "ragged B=3 S=T=100 Hq=12 Hkv=4 D=128 f32 causal")
+    b4_case((2, 70, 130, 6, 2, 96), False, torch.float32,
+            "ragged B=2 S=70 T=130 Hq=6 Hkv=2 D=96 f32 non-causal")
+    b4_case(pre_shape, True, torch.bfloat16,
+            "(b) prefill S=T=160 bf16 causal")
+    b4_case(enc_shape, False, torch.bfloat16, "(a) MiniLM encode bf16")
+    b4_case((3, 100, 100, 12, 4, 128), True, torch.bfloat16,
+            "ragged S=T=100 G=3 bf16 causal")
+    ms, plain, lib, calls, b_ms, b_by = b4_timing(*enc_in, False, 50, flush)
+    rows.append(dict(name="flash_attention", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:65",
+                     max_abs_err=err4, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib, calls=calls,
+                     shape="(a) B=256 S=T=64 H=6 D=64 f32 non-causal"))
+    for label, (qq, kk, vv) in (("(b) S=T=160", pre_in),
+                                (f"(b) S=T={prompt_len}", real_in)):
+        t = b4_timing(qq, kk, vv, True, 200)
+        print(f"timing flash_attention {label} f32 causal (device time per "
+              f"call, profiler): kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+              f"library {t[2]:.4f} ms, bound {t[4]:.5f} ms ({t[5]}); per "
+              f"call with host gaps (CUDA events): kernel {t[3][0]:.4f}, "
+              f"plain {t[3][1]:.4f}, library {t[3][2]:.4f} ms")
     for r in rows:
         c = r["calls"]
-        print(f"timing {r['name']} (device time per call, profiler): kernel "
+        print(f"timing {r['name']} {r.get('shape', '')} (device time per "
+              "call, profiler): kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}); per call with host gaps (CUDA events): "
@@ -378,21 +473,40 @@ def make_stream(kb, pairs, seed):
     return [stream[i] for i in order], set(exact)
 
 
-def serve_slice(torch, np, si, stream, exact, answers, label):
-    """query_batch over half the stream, serve()/submit() over the other
-    half; checks every result and returns the per-query (hit, row text)
-    plus the latency numbers."""
+def serve_slice(torch, np, si, stream, exact, answers, label,
+                serve_first=False):
+    """query_batch over one half of the stream, serve()/submit() over the
+    other (the first half goes to query_batch, unless ``serve_first``);
+    checks every result and returns the per-query (hit, row text), the
+    launch counts, the latency numbers and the results in stream order."""
     from repro_torch.kernels import ops
-    dev_store = si._batched.index.dev
-    up0, rows0 = dev_store.uploads, dev_store.n_rows
+    index0 = si._batched.index
+    rows0 = len(index0)
+    # the flat tier appends deltas to its device copy; IVF refits
+    up0 = index0.dev.uploads if hasattr(index0, "dev") else None
     half = len(stream) // 2
+    qb_texts, sv_texts = (stream[half:], stream[:half]) if serve_first \
+        else (stream[:half], stream[half:])
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = si.query_batch(stream[:half], max_new=MAX_NEW)
-    t_qb = time.perf_counter() - t0
-    with si.serve():
-        futs = [si.submit(t, max_new=MAX_NEW) for t in stream[half:]]
-        res += [f.result(timeout=600) for f in futs]
+
+    def run_query_batch():
+        t0 = time.perf_counter()
+        got = si.query_batch(qb_texts, max_new=MAX_NEW)
+        return got, time.perf_counter() - t0
+
+    def run_serve():
+        with si.serve():
+            futs = [si.submit(t, max_new=MAX_NEW) for t in sv_texts]
+            return [f.result(timeout=600) for f in futs]
+
+    if serve_first:
+        served = run_serve()
+        qb, t_qb = run_query_batch()
+        res = served + qb
+    else:
+        qb, t_qb = run_query_batch()
+        served = run_serve()
+        res = qb + served
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(f"{label}: launches on the main path {counts}")
@@ -413,29 +527,31 @@ def serve_slice(torch, np, si, stream, exact, answers, label):
             check(r.hit and r.score >= 0.999,
                   f"{label}: exact stored query {text!r} missed")
     b = si._batched
-    check(b.stats.index_rebuilds >= 1 and b.index.dev.uploads > up0
-          and b.index.dev.n_rows > rows0,
-          f"{label}: no §3.1 write-back + delta rebuild "
-          f"(rebuilds={b.stats.index_rebuilds}, uploads {up0}->"
-          f"{b.index.dev.uploads})")
+    delta = b.index.dev.uploads - up0 if up0 is not None else None
+    check(b.stats.index_rebuilds >= 1 and len(b.index) > rows0
+          and (delta is None or delta > 0),
+          f"{label}: no §3.1 write-back + rebuild (rebuilds="
+          f"{b.stats.index_rebuilds}, rows {rows0}->{len(b.index)}, delta "
+          f"uploads {delta})")
     hits = [r for r in res if r.hit]
     misses = [r for r in res if not r.hit]
-    served = res[half:]
     out = {
         "hits": len(hits), "misses": len(misses),
         "writebacks": b.stats.writebacks, "rebuilds": b.stats.index_rebuilds,
-        "delta_uploads": b.index.dev.uploads - up0,
+        "delta_uploads": delta,
         "query_batch_s": t_qb,
         "hit_p50_ms": pct([r.latency_s for r in served if r.hit], 50),
         "hit_p99_ms": pct([r.latency_s for r in served if r.hit], 99),
         "miss_p50_ms": pct([r.latency_s for r in served if not r.hit], 50),
         "miss_p99_ms": pct([r.latency_s for r in served if not r.hit], 99),
-        "qb_hit_p50_ms": pct([r.latency_s for r in res[:half] if r.hit], 50),
-        "qb_miss_p50_ms": pct([r.latency_s for r in res[:half]
-                               if not r.hit], 50),
+        "qb_hit_p50_ms": pct([r.latency_s for r in qb if r.hit], 50),
+        "qb_hit_p99_ms": pct([r.latency_s for r in qb if r.hit], 99),
+        "qb_miss_p50_ms": pct([r.latency_s for r in qb if not r.hit], 50),
+        "qb_miss_p99_ms": pct([r.latency_s for r in qb if not r.hit], 99),
     }
     print(f"{label}: " + json.dumps(out))
-    return [(r.hit, r.response if r.hit else None) for r in res], counts, out
+    return [(r.hit, r.response if r.hit else None) for r in res], counts, \
+        out, res
 
 
 def decode_rate(torch, engine, prompt, batch):
@@ -482,21 +598,28 @@ def decode_profile(torch, engine, prompt, batch):
     return wall, busy, top, cpu, ops
 
 
-def phase_slices(torch, np, args, card):
+def make_corpus(seed):
+    """The squad KB, its pairs, the tokenizer and the query stream."""
+    from repro_torch.core.kb import build_kb
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.launch.serve import kb_pairs
+    kb = build_kb("squad", n_docs=20)
+    pairs = kb_pairs(kb)
+    tok = Tokenizer.from_texts([d.text() for d in kb.docs], max_vocab=2048)
+    stream, exact = make_stream(kb, pairs, seed)
+    return kb, pairs, tok, stream, exact
+
+
+def phase_slices(torch, np, args, card, corpus):
     from repro_torch.api import EngineCfg, StorInfer, SystemCfg
     from repro_torch.core.embedder import HashEmbedder
-    from repro_torch.core.kb import build_kb
     from repro_torch.core.runtime import BatchedRuntimeCfg
-    from repro_torch.core.tokenizer import Tokenizer
-    from repro_torch.launch.serve import kb_pairs, write_kb_store
+    from repro_torch.launch.serve import write_kb_store
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
-    kb = build_kb("squad", n_docs=20)
-    pairs = kb_pairs(kb)
+    kb, pairs, tok, stream, exact = corpus
     answers = dict(pairs)
-    tok = Tokenizer.from_texts([d.text() for d in kb.docs], max_vocab=2048)
-    stream, exact = make_stream(kb, pairs, args.seed)
     emb = HashEmbedder()
     cfg = SystemCfg(index="flat", s_th_run=0.9, decode_slots=4,
                     batched=BatchedRuntimeCfg(add_misses=True,
@@ -527,12 +650,12 @@ def phase_slices(torch, np, args, card):
                   f"{t_write:.2f} s, opened (upload"
                   f"{' + engine init' if label == 'fp16' else ''}) in "
                   f"{t_open:.2f} s")
-            res, counts, out = serve_slice(torch, np, si, stream, exact,
-                                           answers, f"slice {label}")
+            res, counts, out, _ = serve_slice(torch, np, si, stream, exact,
+                                              answers, f"slice {label}")
             results[label] = (res, out)
             counts_all[label] = counts
             need = ("mips_topk" if dtype == "float16" else "mips_topk_int8",
-                    "decode_attention")
+                    "decode_attention", "flash_attention")
             for n in need:
                 check(counts[n] > 0, f"slice {label}: kernel {n} was not "
                       "launched on the main path")
@@ -561,7 +684,172 @@ def phase_slices(torch, np, args, card):
     for name, ms, n in cpu:
         print(f"  host   {ms:9.3f} ms  x{n:<5d} {name}")
     shutil.rmtree(work, ignore_errors=True)
-    return counts_all
+    return counts_all, engine
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the minilm slice (IVF tier, MiniLM encoder, prefill on B4)
+# ---------------------------------------------------------------------------
+
+
+def median_s(torch, fn, reps=5):
+    """Median host time of ``fn`` (ending in a device synchronise), after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2]
+
+
+def phase_minilm(torch, np, args, card, corpus, engine, dev):
+    from repro_torch.api import EngineCfg, StorInfer, SystemCfg, tier_of
+    from repro_torch.core.embedder import MiniLMEncoder
+    from repro_torch.core.index import IVF_CACHE_NAME, ivf_params
+    from repro_torch.core.runtime import BatchedRuntimeCfg
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import write_kb_store
+
+    kb, pairs, tok, stream, exact = corpus
+    work = ROOT / "build" / "chip_smoke" / "minilm"
+    shutil.rmtree(work, ignore_errors=True)
+    label = "slice minilm"
+    enc = MiniLMEncoder(tok, seed=args.seed, device=dev)
+    t0 = time.perf_counter()
+    write_kb_store(work, kb, enc, N_STORE, seed=args.seed,
+                   emb_dtype="float16").close()
+    print(f"{label}: store of {N_STORE} pairs written in "
+          f"{time.perf_counter() - t0:.2f} s ({len(pairs)} KB queries "
+          "embedded by the port's MiniLM encoder on the card)")
+    bucket = [q for q, _ in pairs[:256]]
+    enc_s = median_s(torch, lambda: enc.encode(bucket))
+    print(f"{label}: MiniLM encode of one 256-row bucket (6 layers, 384 "
+          f"wide, max_len 64): {enc_s * 1e3:.2f} ms median of 5 on {card}")
+    del enc
+    cfg = SystemCfg(embedder="minilm", embedder_kw={"seed": args.seed},
+                    s_th_run=S_TH_MINILM, decode_slots=4, device=str(dev),
+                    batched=BatchedRuntimeCfg(add_misses=True,
+                                              rebuild_every=8),
+                    engine=EngineCfg(arch="qwen3-1.7b", smoke=False,
+                                     max_len=160, chunk=8, seed=args.seed))
+    n_lists, nprobe = ivf_params(N_STORE)
+    cache = work / IVF_CACHE_NAME
+    t0 = time.perf_counter()
+    with StorInfer.open(work, cfg, tokenizer=tok, engine=engine) as si:
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        check(tier_of(si.index) == "ivf" and si.index.n_lists == n_lists
+              and si.index.nprobe == nprobe
+              and si.index.loaded_from is None and cache.exists(),
+              f"{label}: default index='auto' did not fit and save the IVF "
+              f"tier ({tier_of(si.index)}, cache {cache.exists()})")
+    print(f"{label}: index='auto' picked {tier_of(si.index)!r} at "
+          f"{N_STORE} rows, fitted {n_lists} lists (nprobe {nprobe}) and "
+          f"wrote {IVF_CACHE_NAME} in {t_fit:.2f} s (open incl.)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    si = StorInfer.open(work, cfg, tokenizer=tok, engine=engine)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    with si:
+        idx = si.index
+        check(idx.loaded_from == str(cache),
+              f"{label}: the second open refitted instead of loading")
+        enc = si.embedder
+        check(isinstance(enc, MiniLMEncoder) and enc.device == dev,
+              f"{label}: embedder is not the port's MiniLM on {dev}")
+        per_q = idx.nprobe * idx.cap * idx.lists.shape[2] * 4
+        qmax = si._batched.cfg.max_batch
+        print(f"{label}: second open loaded the fit in {t_load:.2f} s; "
+              f"cap {idx.cap} rows per list, lists {idx.lists.numel() * 4 / 2**30:.3f} "
+              f"GiB; probe gather {per_q / 2**20:.1f} MiB per query, "
+              f"{qmax * per_q / 2**30:.3f} GiB for a {qmax}-query batch "
+              "(scanned in chunks of at most 512 MiB)")
+
+        # hits through the serving front door resolve at search time and
+        # never reach decode: the flash launches are the embedder's alone
+        hits_only = sorted(exact)[:8]
+        ops.reset_launch_counts()
+        with si.serve():
+            futs = [si.submit(t, max_new=MAX_NEW) for t in hits_only]
+            rh = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        c_hits = ops.launch_counts()
+        print(f"{label}: hit-only serve() run, launches {c_hits}")
+        check(all(r.hit for r in rh), f"{label}: a stored query missed")
+        n_enc = enc.cfg.n_layers
+        check(c_hits["flash_attention"] > 0
+              and c_hits["flash_attention"] % n_enc == 0
+              and c_hits["decode_attention"] == 0,
+              f"{label}: the MiniLM embedder did not run on B4 ({c_hits})")
+        ops.reset_launch_counts()
+        rq = si.query_batch(hits_only, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        c_qb = ops.launch_counts()
+        print(f"{label}: hit-only query_batch, launches {c_qb} (the decode "
+              "races the search, so prefill may run before the hits cancel "
+              "it)")
+        check(all(r.hit for r in rq) and c_qb["flash_attention"] > 0,
+              f"{label}: hit-only query_batch: {c_qb}")
+
+        # the stream; forward passes of the encoder counted to split the
+        # flash launches into the embedder's and prefill's
+        fwd = []
+        enc_forward = enc._forward
+        enc._forward = lambda t, m: (fwd.append(1), enc_forward(t, m))[1]
+        # serve() first: random MiniLM weights map an unanticipated
+        # phrasing onto a written-back one of the same template and length
+        # (score >= 0.99999), so the half served second mostly hits the
+        # first half's write-backs; the serve() path is the one whose miss
+        # latency users see
+        _, counts, out, res = serve_slice(torch, np, si, stream, exact,
+                                          dict(pairs), label,
+                                          serve_first=True)
+        enc._forward = enc_forward
+        prefill_launches = counts["flash_attention"] - n_enc * len(fwd)
+        n_llm = engine.cfg.n_layers
+        print(f"{label}: flash_attention launches {counts['flash_attention']}"
+              f" = {n_enc} x {len(fwd)} encoder passes + {prefill_launches} "
+              f"prefill ({prefill_launches // n_llm} prompts x {n_llm} "
+              "layers)")
+        check(out["misses"] > 0, f"{label}: no miss, so no prefill ran")
+        check(prefill_launches > 0 and prefill_launches % n_llm == 0
+              and counts["decode_attention"] > 0,
+              f"{label}: prefill or decode did not run on B4/B3 ({counts})")
+        check(tier_of(si._batched.index) == "ivf",
+              f"{label}: the rebuild left the IVF tier")
+        groups = {"exact": [], "near": [], "unanticipated": []}
+        for text, r in zip(stream, res):
+            g = "exact" if text in exact else \
+                "near" if text.startswith("hi, ") else "unanticipated"
+            groups[g].append((r.score, r.hit))
+        for g, v in groups.items():
+            sc = np.asarray([x for x, _ in v])
+            print(f"{label}: top-1 scores, {g} ({len(v)}, "
+                  f"{sum(h for _, h in v)} hits at s_th_run {S_TH_MINILM}): "
+                  "min/p10/p50/p90/max "
+                  + " ".join(f"{x:.6f}" for x in np.percentile(
+                      sc, [0, 10, 50, 90, 100])))
+        recall = si._batched.index.recall_vs_flat(enc.encode(stream), k=1)
+        print(f"{label}: IVF recall_vs_flat at k=1 on the stream's "
+              f"embeddings: {recall:.4f}")
+        out["recall_at_1"] = recall
+        miss_text = next(t for t, r in zip(stream, res) if not r.hit)
+        ids = engine.tok.encode(miss_text, bos=True)
+        pre_s = median_s(torch, lambda: engine._prefill(engine.tokens(ids)))
+        print(f"{label}: prefill of one {len(ids)}-token prompt ({n_llm} "
+              f"layers, attention on B4): {pre_s * 1e3:.2f} ms median of 5 "
+              f"on {card}")
+        peak = torch.cuda.max_memory_allocated()
+        out["peak_mem_gib"] = peak / 2 ** 30
+        print(f"{label}: peak device memory {peak / 2**30:.3f} GiB on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"minilm hits": c_hits, "minilm query_batch": c_qb,
+            "minilm": counts}
 
 
 def main():
@@ -597,10 +885,18 @@ def main():
                 print(f"build {k}: {line.strip()}")
 
     # -- phase 3: kernels vs plain -------------------------------------------
-    rows = phase_kernels(torch, np, args, dev)
+    corpus = make_corpus(args.seed)
+    tok, stream, exact = corpus[2], corpus[3], corpus[4]
+    unanticipated = [t for t in stream
+                     if t not in exact and not t.startswith("hi, ")]
+    rows = phase_kernels(torch, np, args, dev,
+                         len(tok.encode(unanticipated[0], bos=True)))
 
     # -- phases 4, 5: the slice, fp16 then int8 -------------------------------
-    counts = phase_slices(torch, np, args, card)
+    counts, engine = phase_slices(torch, np, args, card, corpus)
+
+    # -- phase 6: the minilm slice (IVF, MiniLM on B4, prefill on B4) ---------
+    counts.update(phase_minilm(torch, np, args, card, corpus, engine, dev))
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -8,16 +8,18 @@
         print(si.query_batch(["what is the height of aurora bridge?"]))
 
 Everything runs on ``cfg.device`` ("cuda" unless the caller passes
-"cpu"): the device-resident index and the fallback engine. Underneath,
-the duck types are checked ``Protocol``s (``EmbedderProtocol``,
-``IndexProtocol``) and components are resolved from string registries
-(``EMBEDDERS``: ``"hash"``; ``INDEXES``: ``"auto"``, ``"flat"``,
-``"none"``).
+"cpu"): the device-resident index, a neural embedder and the fallback
+engine. Underneath, the duck types are checked ``Protocol``s
+(``EmbedderProtocol``, ``IndexProtocol``) and components are resolved
+from string registries (``EMBEDDERS``: ``"hash"``, ``"minilm"``;
+``INDEXES``: ``"auto"``, ``"flat"``, ``"ivf"``, ``"none"``).
 
 Lifecycle:
 
-    StorInfer.open(path, cfg)        online: store + index (+ engine when
-                                     ``cfg.engine`` is set, or ``engine=``)
+    StorInfer.open(path, cfg)        online: store + index (a persisted
+                                     IVF fit loads instead of refitting)
+                                     (+ engine when ``cfg.engine`` is set,
+                                     or ``engine=``)
     .query() / .query_batch()        sequential race / batched microbatch
     .serve() / .submit()             stage-decoupled serving pipeline
     .stats() / .close()              accounting, teardown
@@ -36,8 +38,9 @@ from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence,
 
 import numpy as np
 
-from repro_torch.core.embedder import HashEmbedder
-from repro_torch.core.index import FlatIndex, auto_index, device_store_for
+from repro_torch.core.embedder import HashEmbedder, MiniLMEncoder
+from repro_torch.core.index import (FlatIndex, IVFIndex, auto_index,
+                                    cached_device_store, device_store_for)
 from repro_torch.core.runtime import (BatchedRuntime, BatchedRuntimeCfg,
                                       QueryResult, RuntimeCfg, RuntimeStats,
                                       StorInferRuntime)
@@ -76,13 +79,14 @@ class IndexProtocol(Protocol):
     def __len__(self) -> int: ...
 
 
+_TIER_NAMES = {FlatIndex: "flat", IVFIndex: "ivf"}
+
+
 def tier_of(index) -> str:
     """Registry-name of an index instance (``"none"`` for store-only)."""
     if index is None:
         return "none"
-    if type(index) is FlatIndex:
-        return "flat"
-    return type(index).__name__.lower()
+    return _TIER_NAMES.get(type(index), type(index).__name__.lower())
 
 
 # ---------------------------------------------------------------------------
@@ -94,15 +98,16 @@ INDEXES: Dict[str, Callable[..., Any]] = {}
 
 
 def register_embedder(name: str, factory: Callable[..., Any]):
-    """Register ``factory(tokenizer=None, **kw) -> EmbedderProtocol``."""
+    """Register ``factory(tokenizer=None, device=..., **kw) ->
+    EmbedderProtocol``; ``device`` places a neural embedder."""
     EMBEDDERS[name] = factory
     return factory
 
 
 def register_index(name: str, factory: Callable[..., Any]):
-    """Register ``factory(source, device=..., **kw) -> IndexProtocol``
-    where ``source`` is a store, an embeddings view, or a raw
-    ``(n, dim)`` array."""
+    """Register ``factory(source, device=..., cache_dir=None, **kw) ->
+    IndexProtocol`` where ``source`` is a store, an embeddings view, or a
+    raw ``(n, dim)`` array."""
     INDEXES[name] = factory
     return factory
 
@@ -126,7 +131,7 @@ def make_embedder(spec: Union[str, EmbedderProtocol], *, tokenizer=None,
 
 
 def make_index(spec: Union[str, IndexProtocol], source=None,
-               **kw) -> Optional[IndexProtocol]:
+               cache_dir=None, **kw) -> Optional[IndexProtocol]:
     """Resolve a tier name (or validate an instance) to an index over
     ``source``. ``"none"`` returns None (store-only mode)."""
     if isinstance(spec, str):
@@ -137,7 +142,7 @@ def make_index(spec: Union[str, IndexProtocol], source=None,
         except KeyError:
             raise KeyError(f"unknown index tier {spec!r}; registered: "
                            f"{sorted(INDEXES)}") from None
-        idx = factory(source, **kw)
+        idx = factory(source, cache_dir=cache_dir, **kw)
     else:
         idx = spec
     if not isinstance(idx, IndexProtocol):
@@ -146,7 +151,13 @@ def make_index(spec: Union[str, IndexProtocol], source=None,
     return idx
 
 
-def _flat_factory(source, use_kernel=False, device="cuda"):
+def _minilm_factory(tokenizer=None, device="cuda", **kw):
+    if tokenizer is None:
+        raise ValueError("the 'minilm' embedder needs tokenizer=")
+    return MiniLMEncoder(tokenizer, device=device, **kw)
+
+
+def _flat_factory(source, cache_dir=None, use_kernel=False, device="cuda"):
     # stores get the per-store DeviceStore cache, so §3.1 write-back
     # rebuilds of a pinned "flat" tier append deltas instead of
     # re-uploading the matrix (auto_index does the same for "auto")
@@ -158,9 +169,20 @@ def _flat_factory(source, use_kernel=False, device="cuda"):
     return FlatIndex(source, use_kernel=use_kernel, on=device)
 
 
-register_embedder("hash", lambda tokenizer=None, **kw: HashEmbedder(**kw))
+def _ivf_factory(source, cache_dir=None, device="cuda", **kw):
+    # reuses a flat residency the store already has; never creates one
+    if not hasattr(source, "embeddings"):
+        return IVFIndex(source, on=device, **kw)
+    return IVFIndex(source.embeddings(), on=device,
+                    device=cached_device_store(source, device), **kw)
+
+
+register_embedder("hash", lambda tokenizer=None, device=None, **kw:
+                  HashEmbedder(**kw))
+register_embedder("minilm", _minilm_factory)
 register_index("auto", auto_index)
 register_index("flat", _flat_factory)
+register_index("ivf", _ivf_factory)
 
 
 # ---------------------------------------------------------------------------
@@ -189,8 +211,8 @@ class SystemCfg:
     ``embedder``/``index`` are registry names (or ready instances
     satisfying the protocols); ``engine=None`` runs search-only (misses
     return empty responses); ``s_th_run`` overrides the runtime threshold
-    on BOTH the sequential and batched paths; ``device`` places the index
-    and the engine.
+    on BOTH the sequential and batched paths; ``device`` places the
+    index, a neural embedder and the engine.
     """
     embedder: Union[str, EmbedderProtocol] = "hash"
     embedder_kw: dict = dataclasses.field(default_factory=dict)
@@ -202,6 +224,8 @@ class SystemCfg:
     engine: Optional[EngineCfg] = None
     s_th_run: Optional[float] = None
     decode_slots: Optional[int] = None   # overrides cfg.batched's
+    cache_index: bool = True           # persist/load the IVF fit in the
+                                       # store root (index_ivf.npz)
     device: str = "cuda"
 
     def __post_init__(self):
@@ -302,29 +326,33 @@ class StorInfer:
             # §3.1 write-back rebuilds honor the DECLARED tier and its
             # kwargs; an instance-configured index has no recipe, so its
             # rebuilds fall back to auto_index
+            cache_dir = str(store.root) if self.cfg.cache_index else None
             rebuild = None
             if isinstance(self.cfg.index, str):
                 rebuild = lambda store, mesh: make_index(   # noqa: E731
                     self.cfg.index, store, device=self.cfg.device,
-                    **self.cfg.index_kw)
+                    cache_dir=cache_dir, **self.cfg.index_kw)
             self._batched = BatchedRuntime(
                 self.index, store, self.embedder, engine,
                 cfg=self.cfg.batched,
-                auto_index_kw={"device": self.cfg.device}, rebuild=rebuild)
+                auto_index_kw={"device": self.cfg.device,
+                               "cache_dir": cache_dir}, rebuild=rebuild)
 
     # -- lifecycle ------------------------------------------------------------
     @classmethod
     def open(cls, path, cfg: SystemCfg = None, *, tokenizer=None,
              engine=None) -> "StorInfer":
         """Open an existing store for serving: memory-mapped shards, the
-        index on ``cfg.device``, and the engine (``engine=``, or built
-        from ``cfg.engine`` when set)."""
+        index on ``cfg.device`` (with ``cfg.cache_index`` a persisted IVF
+        fit in the store root loads instead of refitting), and the engine
+        (``engine=``, or built from ``cfg.engine`` when set)."""
         cfg = cfg or SystemCfg()
         store = PrecomputedStore.open_(path)
         embedder = make_embedder(cfg.embedder, tokenizer=tokenizer,
-                                 **cfg.embedder_kw)
+                                 **{"device": cfg.device, **cfg.embedder_kw})
         index = make_index(cfg.index, store, device=cfg.device,
-                           **cfg.index_kw)
+                           cache_dir=(str(store.root) if cfg.cache_index
+                                      else None), **cfg.index_kw)
         if engine is None and cfg.engine is not None:
             tok = tokenizer or _tokenizer_from_store(store)
             engine = _build_engine(cfg.engine, tok, cfg.device)

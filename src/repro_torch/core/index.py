@@ -1,13 +1,24 @@
-"""The flat MIPS tier over the precomputed-query embeddings, on a device.
+"""MIPS index tiers over the precomputed-query embeddings, on a device.
 
-Port of the JAX package's ``core/index.py`` flat tier: the store's
-embeddings are uploaded once to a device (``DeviceStore``), §3.1
-write-back rebuilds append only the new rows, and ``FlatIndex`` scans them
-exactly. The IVF and sharded tiers are not ported yet (ROADMAP A5 / A8):
-``auto_index`` raises when ``select_tier`` picks one of them and never
-serves flat in their place.
+Port of the JAX package's ``core/index.py`` serving tiers:
 
-Residency layout per device (``layout=``):
+  FlatIndex  — exact MIPS over a device-resident copy (``DeviceStore``):
+               uploaded once, §3.1 write-back rebuilds append only the new
+               rows, scanned by the ``mips_topk`` / ``mips_topk_int8``
+               kernels on CUDA.
+  IVFIndex   — k-means coarse quantizer, probes ``nprobe`` lists of a
+               padded (lists, cap, dim) f32 layout; ``save``/``load`` keep
+               the reference's ``index_ivf.npz`` format (centroids + padded
+               ids + a crc32 fingerprint of the first rows), so a fit
+               written by either package opens in the other.
+
+``auto_index`` picks between them from the store size (``select_tier``);
+``cache_dir=`` loads a matching persisted IVF fit instead of re-running
+k-means. The sharded tier is not ported yet (ROADMAP A8): ``auto_index``
+raises when ``select_tier`` picks it and never serves another tier in its
+place.
+
+Residency layout of a ``DeviceStore`` (``layout=``):
 
 * ``"kernel"`` (default on CUDA) — rows stay in their stored dtype: int8
   values + per-row f32 scales for quantized stores, scanned by the
@@ -20,9 +31,14 @@ Residency layout per device (``layout=``):
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import weakref
-from typing import Optional
+import zipfile
+import zlib
+from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,6 +151,21 @@ class DeviceStore:
         self.n_rows = n
         return self
 
+    def matrix(self) -> torch.Tensor:
+        """The resident rows as a device (N, D) f32 matrix (an IVF fit over
+        a store that outgrew the flat tier reuses the residency instead of
+        re-uploading)."""
+        with self._sync_lock:
+            n_rows, xT, x, scales = (self.n_rows, self._xT, self._x,
+                                     self._scales)
+        if n_rows == 0:
+            return torch.zeros((0, self.dim or 0), dtype=torch.float32,
+                               device=self.device)
+        if self.layout == "gemm":
+            return xT.T
+        x = x.float()
+        return x * scales[:, None] if self.quantized else x
+
     def search(self, queries, k: int):
         """Exact flat MIPS over the resident rows: (vals, idx) ndarrays."""
         q = np.asarray(queries, np.float32)
@@ -160,14 +191,20 @@ class DeviceStore:
 _DEVICE_STORES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def cached_device_store(store) -> Optional[DeviceStore]:
-    """The store's cached ``DeviceStore`` if one already exists, delta-
-    synced — or None, WITHOUT creating residency."""
+def cached_device_store(store, device=None) -> Optional[DeviceStore]:
+    """The store's cached ``DeviceStore`` if one already exists (on
+    ``device``, when given), delta-synced — or None, WITHOUT creating
+    residency. IVF fits use it: a store that grew out of the flat tier
+    reuses the residency it already paid for, but an IVF-scale store never
+    pins a flat device copy just to seed k-means."""
     try:
         ds = _DEVICE_STORES.get(store)
     except TypeError:
         return None
-    return ds.sync(store) if ds is not None else None
+    if ds is None or (device is not None
+                      and ds.device != torch.device(device)):
+        return None
+    return ds.sync(store)
 
 
 def device_store_for(store, layout: str = "auto",
@@ -218,6 +255,220 @@ class FlatIndex:
         return self.dev.n_rows
 
 
+# ---------------------------------------------------------------------------
+# IVF (k-means coarse quantizer)
+# ---------------------------------------------------------------------------
+
+# transient bytes of one chunk of the probe gather (Q, nprobe, cap, D) f32;
+# queries are scanned in chunks that stay under it (the result is the same)
+_PROBE_CHUNK_BYTES = 512 * 2 ** 20
+
+
+def _device_matrix(embs, device) -> torch.Tensor:
+    """Host -> device (N, D) f32, one shard at a time in its STORED dtype
+    (fp16 halves the transfer, int8 + scales quarter it), upcast or
+    dequantized on the device: peak host memory is one shard."""
+    device = torch.device(device)
+
+    def put(a):   # a memmapped shard is read-only: copy it
+        return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(
+            device)
+
+    if hasattr(embs, "iter_qshards"):
+        parts = [put(v).float() * put(sc)[:, None]
+                 for v, sc in embs.iter_qshards()]
+    elif hasattr(embs, "iter_shards"):
+        parts = [put(p).float() for p in embs.iter_shards()]
+    else:
+        return put(np.asarray(embs)).float()
+    if not parts:
+        return torch.zeros(embs.shape, dtype=torch.float32, device=device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+
+def kmeans(x: torch.Tensor, n_clusters: int, iters: int = 10,
+           seed: int = 0):
+    """Plain Lloyd's on ``x``'s device. Returns (centroids, assignment).
+    The seed rows are drawn by a seeded ``torch.Generator`` (the
+    reference's ``jax.random.choice`` stream cannot be reproduced, so
+    exact parity with a reference fit goes through its saved file).
+    ``n_clusters`` is clamped to the row count."""
+    n = int(x.shape[0])
+    n_clusters = max(1, min(int(n_clusters), n))
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    init = torch.randperm(n, generator=gen, device=x.device)[:n_clusters]
+    cent = x[init]
+    x2 = (x * x).sum(1)[:, None]
+    for _ in range(iters):
+        d = x2 - 2 * x @ cent.T + (cent * cent).sum(1)[None, :]
+        assign = torch.argmin(d, dim=1)
+        oh = torch.nn.functional.one_hot(assign, cent.shape[0]).to(x.dtype)
+        sums = oh.T @ x
+        counts = oh.sum(0)[:, None]
+        cent = torch.where(counts > 0, sums / torch.clamp(counts, min=1),
+                           cent)
+    return cent, assign
+
+
+class IVFIndex:
+    """IVF-Flat: coarse k-means, probe the top-``nprobe`` lists, exact scan
+    of their rows. Lists are padded to one (n_lists, cap, D) f32 layout
+    (ids -1 in the padding), so a probe is one gather + batched product.
+
+    ``save``/``load`` persist the k-means product (centroids + the padded
+    id layout, no raw vectors: ``load`` re-gathers them from the store) in
+    the reference's ``.npz`` format."""
+
+    def __init__(self, embs, n_lists: int = 64, nprobe: int = 8,
+                 seed: int = 0, device: Optional[DeviceStore] = None,
+                 on="cuda"):
+        # an ALREADY-cached DeviceStore (a store that grew out of the flat
+        # tier) seeds the fit from its resident rows; otherwise the fit
+        # matrix is transient, so an IVF-scale store never pins a flat copy
+        x = device.matrix() if device is not None else _device_matrix(embs,
+                                                                      on)
+        self.n_total = int(x.shape[0])
+        self.n_lists = max(1, min(n_lists, self.n_total))
+        self.nprobe = min(nprobe, self.n_lists)
+        self.loaded_from: Optional[str] = None
+        self.centroids, assign = kmeans(x, self.n_lists, seed=seed)
+        # rows grouped by list, ascending row order inside each list (the
+        # reference fills its layout in that order)
+        order = torch.argsort(assign, stable=True)
+        lst = assign[order]
+        counts = torch.bincount(assign, minlength=self.n_lists)
+        cap = max(int(counts.max()), 1)
+        slot = torch.arange(self.n_total, device=x.device) \
+            - (torch.cumsum(counts, 0) - counts)[lst]
+        self.ids = torch.full((self.n_lists, cap), -1, dtype=torch.int32,
+                              device=x.device)
+        self.ids[lst, slot] = order.to(torch.int32)
+        self.lists = torch.zeros((self.n_lists, cap, x.shape[1]),
+                                 dtype=torch.float32, device=x.device)
+        self.lists[lst, slot] = x[order]
+
+    @property
+    def cap(self) -> int:
+        return int(self.ids.shape[1])
+
+    # -- persistence ----------------------------------------------------------
+    @staticmethod
+    def _fingerprint(lists, ids: np.ndarray) -> int:
+        """crc32 of the first 256 valid rows in list-major order: the row
+        count alone cannot tell a store with other content apart from the
+        one the fit belongs to. ``lists`` is an array or a tensor; only
+        the sampled rows leave the device."""
+        first = np.flatnonzero(ids.ravel() >= 0)[:256]
+        flat = lists.reshape(-1, lists.shape[-1])
+        if isinstance(flat, torch.Tensor):
+            flat = flat[torch.from_numpy(first).to(flat.device)].cpu().numpy()
+        else:
+            flat = flat[first]
+        return zlib.crc32(np.ascontiguousarray(flat, np.float32).tobytes())
+
+    def save(self, path):
+        """Persist centroids + padded id layout, atomically (tmp + rename)
+        so a killed build never leaves a torn cache."""
+        path = Path(path)
+        meta = {"n_total": self.n_total, "n_lists": self.n_lists,
+                "nprobe": self.nprobe,
+                "dim": int(self.centroids.shape[1]),
+                "fingerprint": self._fingerprint(self.lists,
+                                                 self.ids.cpu().numpy())}
+        tmp = path.with_name(path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, centroids=self.centroids.cpu().numpy(),
+                     ids=self.ids.cpu().numpy(),
+                     meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+        os.replace(tmp, path)
+        return path
+
+    @classmethod
+    def load(cls, path, embs, on="cuda") -> "IVFIndex":
+        """Rebuild from a ``save``d layout + the store's embeddings (any
+        array or sharded view), without k-means. Raises ``ValueError`` when
+        the fingerprint says the fit belongs to other store content."""
+        path = Path(path)
+        with np.load(path) as d:
+            meta = json.loads(bytes(d["meta"]).decode())
+            centroids = d["centroids"]
+            ids = d["ids"]
+        valid = ids >= 0
+        rows = ids[valid]
+        vecs = embs.take(rows) if hasattr(embs, "iter_shards") \
+            else np.asarray(embs)[rows]
+        buf = np.zeros(ids.shape + (int(meta["dim"]),), np.float32)
+        buf[valid] = np.asarray(vecs, np.float32)
+        want = meta.get("fingerprint")
+        if want is not None and cls._fingerprint(buf, ids) != want:
+            raise ValueError(
+                f"{path}: persisted IVF fit belongs to different store "
+                "content (same row count, different vectors) — rebuild")
+        st = cls.__new__(cls)
+        st.n_total = int(meta["n_total"])
+        st.n_lists = int(meta["n_lists"])
+        st.nprobe = int(meta["nprobe"])
+        st.loaded_from = str(path)
+        device = torch.device(on)
+        st.centroids = torch.from_numpy(centroids).to(device)
+        st.ids = torch.from_numpy(ids).to(device)
+        st.lists = torch.from_numpy(buf).to(device)
+        return st
+
+    # -- search ---------------------------------------------------------------
+    def _search_impl(self, q: torch.Tensor, k: int):
+        # 1. coarse: the nprobe best centroids, (value desc, index asc)
+        _, probe = topk_by_value(q @ self.centroids.T, self.nprobe)
+        probe = probe.long()
+        # 2. gather the probed lists and scan them exactly, chunked over
+        #    queries to bound the (Q, nprobe, cap, D) transient
+        per_q = self.nprobe * self.lists.shape[1] * self.lists.shape[2] * 4
+        step = max(1, _PROBE_CHUNK_BYTES // max(per_q, 1))
+        vals, idx = [], []
+        for lo in range(0, q.shape[0], step):
+            qc, pc = q[lo:lo + step], probe[lo:lo + step]
+            cand_ids = self.ids[pc].reshape(qc.shape[0], -1)
+            s = torch.einsum("qd,qpcd->qpc", qc, self.lists[pc])
+            s = s.reshape(qc.shape[0], -1).masked_fill(cand_ids < 0,
+                                                       -float("inf"))
+            v, pos = topk_by_value(s, k)
+            vals.append(v)
+            idx.append(torch.gather(cand_ids, 1, pos.long()))
+        return torch.cat(vals), torch.cat(idx)
+
+    def search(self, queries: np.ndarray, k: int):
+        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(
+            self.lists.device)
+        v, i = self._search_impl(q, int(k))
+        return v.cpu().numpy(), i.cpu().numpy()
+
+    def __len__(self):
+        return self.n_total
+
+    def reconstruct(self) -> np.ndarray:
+        """The indexed rows, (N, D), rebuilt from the padded list layout
+        (row order restored from the stored ids)."""
+        lists = self.lists.cpu().numpy()
+        ids = self.ids.cpu().numpy()
+        out = np.zeros((self.n_total, lists.shape[-1]), np.float32)
+        valid = ids >= 0
+        out[ids[valid]] = lists[valid]
+        return out
+
+    def recall_vs_flat(self, queries, k: int = 10) -> float:
+        """Mean recall@k of this index against an exact flat scan over the
+        same rows (built on demand from ``reconstruct()``, on the same
+        device, and dropped). 1.0: the nprobe pruning lost nothing for
+        these queries."""
+        q = np.asarray(queries, np.float32)
+        flat = FlatIndex(self.reconstruct(), on=self.lists.device)
+        _, flat_ids = flat.search(q, k)
+        _, ivf_ids = self.search(q, k)
+        hits = [len(set(f.tolist()) & set(i.tolist())) / k
+                for f, i in zip(flat_ids, ivf_ids)]
+        return float(np.mean(hits))
+
+
 def select_tier(n_rows: int, mesh_axis_size: int = 1, *,
                 flat_max_rows: int = FLAT_MAX_ROWS,
                 shard_min_rows: int = SHARD_MIN_ROWS) -> str:
@@ -231,30 +482,66 @@ def select_tier(n_rows: int, mesh_axis_size: int = 1, *,
     return "ivf"
 
 
+def ivf_params(n_rows: int) -> Tuple[int, int]:
+    """(n_lists, nprobe) heuristic: sqrt-N lists, probe ~1/8 of them (at
+    least 8) — keeps the scanned fraction roughly constant as N grows."""
+    n_lists = max(16, int(round(float(n_rows) ** 0.5)))
+    nprobe = max(8, n_lists // 8)
+    return n_lists, min(nprobe, n_lists)
+
+
+IVF_CACHE_NAME = "index_ivf.npz"
+
+
 def auto_index(store, mesh=None, *, use_kernel: Optional[bool] = None,
                flat_max_rows: int = FLAT_MAX_ROWS,
-               shard_min_rows: int = SHARD_MIN_ROWS, device="cuda"):
+               shard_min_rows: int = SHARD_MIN_ROWS, seed: int = 0,
+               cache_dir=None, device="cuda"):
     """Build the right index tier for ``store`` (a PrecomputedStore, or any
-    object with ``.embeddings()``, or a raw (N, D) array). Only the flat
-    tier is ported: a store that ``select_tier`` puts in the IVF or
-    sharded tier raises ``NotImplementedError`` instead of being served
-    flat. ``mesh`` is the number of ranks the rows would shard over (the
-    JAX mesh axis size; None for one device). ``use_kernel=False`` asks
-    for the gemm layout, which only a CPU device has."""
+    object with ``.embeddings()``, or a raw (N, D) array). ``mesh`` is the
+    number of ranks the rows would shard over (the JAX mesh axis size;
+    None for one device); the sharded tier raises ``NotImplementedError``
+    (ROADMAP A8) instead of being served as another tier.
+    ``use_kernel=False`` asks for the flat tier's gemm layout, which only a
+    CPU device has.
+
+    ``cache_dir`` (typically the store root) persists the IVF k-means
+    product: a matching cache loads (no k-means); a stale, foreign or
+    unreadable one is refitted and saved anew. The flat tier has no build
+    product, so the option is a no-op there."""
     embs = store.embeddings() if hasattr(store, "embeddings") \
         else np.asarray(store, np.float32)
     n_rows = int(embs.shape[0])
     tier = select_tier(n_rows, int(mesh or 1), flat_max_rows=flat_max_rows,
                        shard_min_rows=shard_min_rows)
-    if tier != "flat":
-        item = "A5 (IVF tier)" if tier == "ivf" else "A8 (sharded tier)"
+    is_store = hasattr(store, "embeddings")
+    if tier == "sharded":
         raise NotImplementedError(
-            f"select_tier picked the {tier!r} tier for {n_rows} rows; the "
-            f"port serves only the flat tier so far (ROADMAP {item}). Pass "
-            "index='flat' to scan the whole store exactly.")
+            f"select_tier picked the 'sharded' tier for {n_rows} rows over "
+            f"{mesh} ranks; the port has no sharded tier yet (ROADMAP A8 "
+            "(sharded tier)).")
+    if tier == "ivf":
+        n_lists, nprobe = ivf_params(n_rows)
+        cache = Path(cache_dir) / IVF_CACHE_NAME if cache_dir else None
+        if cache is not None and cache.exists():
+            try:
+                # the meta alone first, so a stale fit skips the row gather
+                with np.load(cache) as d:
+                    meta = json.loads(bytes(d["meta"]).decode())
+                if (meta["n_total"], meta["n_lists"], meta["nprobe"]) == \
+                        (n_rows, n_lists, nprobe):
+                    return IVFIndex.load(cache, embs, on=device)
+            except (OSError, ValueError, KeyError, EOFError,
+                    zipfile.BadZipFile):
+                pass              # unreadable or foreign cache: refit
+        dev = cached_device_store(store, device) if is_store else None
+        idx = IVFIndex(embs, n_lists=n_lists, nprobe=nprobe, seed=seed,
+                       device=dev, on=device)
+        if cache is not None:
+            idx.save(cache)
+        return idx
     layout = "auto" if use_kernel is None else \
         ("kernel" if use_kernel else "gemm")
     dev = device_store_for(store, layout=layout, device=device) \
-        if hasattr(store, "embeddings") \
-        else DeviceStore(embs, layout=layout, device=device)
+        if is_store else DeviceStore(embs, layout=layout, device=device)
     return FlatIndex(device=dev, use_kernel=dev.layout == "kernel")

@@ -203,7 +203,7 @@ class BatchedRuntime:
     racing it, hit slots cancelled mid-flight — same stage helpers, with
     a barrier at the end.
 
-    ``index`` may be any IndexProtocol (the port serves FlatIndex); use
+    ``index`` may be any IndexProtocol (FlatIndex or IVFIndex); use
     ``BatchedRuntime.from_store`` to let ``auto_index`` pick the tier.
     ``engine=None`` runs search-only (misses return empty responses).
     """
@@ -237,10 +237,18 @@ class BatchedRuntime:
     @classmethod
     def from_store(cls, store, embedder, engine=None,
                    cfg: BatchedRuntimeCfg = None, mesh=None,
-                   **auto_index_kw) -> "BatchedRuntime":
+                   cache_dir=None, **auto_index_kw) -> "BatchedRuntime":
         """Let ``auto_index`` pick the tier (``auto_index_kw`` are its
-        keywords, ``device`` among them)."""
+        keywords, ``device`` among them). ``cache_dir`` enables the
+        persisted-IVF path: ``"store"`` uses the store's own root, any
+        other path is used as-is. Reopening a paper-scale store then loads
+        the k-means product instead of refitting it; ``flush_and_rebuild``
+        refreshes the same cache as the store grows (the stale row count
+        forces a refit + re-save)."""
         from repro_torch.core.index import auto_index
+        if cache_dir is not None:
+            auto_index_kw["cache_dir"] = str(
+                store.root if cache_dir == "store" else cache_dir)
         return cls(auto_index(store, mesh, **auto_index_kw), store,
                    embedder, engine, cfg=cfg, mesh=mesh,
                    auto_index_kw=auto_index_kw)
@@ -364,8 +372,8 @@ class BatchedRuntime:
         store, then SWAP it atomically under the index lock — searches in
         flight keep their snapshot, later ones see the new index. With the
         default ``auto_index`` path the tier is re-picked (a store that
-        outgrew the flat boundary raises until the IVF tier is ported,
-        ROADMAP A5); a ``rebuild`` callable pins the caller's choice."""
+        outgrew the flat boundary moves to IVF); a ``rebuild`` callable
+        pins the caller's choice."""
         with self._rebuild_lock:
             self.store.flush()
             if self._rebuild is not None:

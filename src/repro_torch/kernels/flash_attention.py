@@ -1,0 +1,83 @@
+"""B4 ``flash_attention``: causal or non-causal grouped-query attention over
+a full sequence, in the model's layout (q (B,S,Hq,D), k and v (B,T,Hkv,D)).
+
+The CUDA kernel (``csrc/flash_attention.cu``) replaces the JAX package's
+``kernels/flash_attention.py:flash_attention_pallas``. It reads the model's
+layout through strides, so the head-major transposes of the reference's
+``ops.flash_attention`` have no counterpart here. It carries the engine's
+prefill (causal) and the MiniLM encoder's layers (non-causal; the encoder
+attends to its padding tokens, as the reference does, so there is no
+key-padding mask).
+
+``flash_attention_plain`` is the naive math the reference runs for the
+same call sites (``models/layers.py:gqa_scores_softmax_out`` with the
+causal mask at offset 0): f32 scores, f32 softmax, probabilities cast to
+v's dtype before P.V. It is the CPU path of ``ops.flash_attention`` and
+what the kernel is held against on the card. With f32 inputs the two agree
+to summation order; with bf16 inputs the plain version rounds the scores
+to bf16 (the einsum's output dtype) and the normalised probability, the
+kernel neither the scores and only the unnormalised ``exp(s - m)``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG = -1e30
+MAX_HEAD_DIM = 128
+
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def flash_attention_plain(q, k, v, causal: bool = True):
+    """q (B,S,Hq,D), k and v (B,T,Hkv,D) -> (B,S,Hq,D) in v's dtype; query
+    row i attends key j when j < T and, if ``causal``, j <= i."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(q.dtype)).float()
+    s = s * D ** -0.5
+    if causal:
+        keep = torch.arange(T, device=q.device)[None, :] <= \
+            torch.arange(S, device=q.device)[:, None]
+        s = s.masked_fill(~keep, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    return o.reshape(B, S, Hq, v.shape[-1])
+
+
+def flash_attention_cuda(lib, q, k, v, causal: bool = True):
+    """Launch the kernel on ``q``'s current stream; same function as
+    ``flash_attention_plain``, output in q's dtype (the reference's)."""
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: inputs must be on one CUDA "
+                         "device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel: q, k, v all f32 or all "
+                        f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention kernel: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, T, Hkv, D) or v.shape != k.shape or Hq % Hkv \
+            or min(S, T) < 1:
+        raise ValueError(f"flash_attention kernel: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel: head dim {D} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPES[q.dtype], B, S, T, Hq, Hkv, D, int(bool(causal)), D ** -0.5,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    return o

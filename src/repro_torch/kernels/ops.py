@@ -27,6 +27,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mips_topk as _mt
 from repro_torch.kernels import mips_topk_int8 as _mt8
 
@@ -39,6 +40,7 @@ KERNELS = {
     "mips_topk": ("mips_topk.cu", _mt.ARGTYPES),
     "mips_topk_int8": ("mips_topk_int8.cu", _mt8.ARGTYPES),
     "decode_attention": ("decode_attention.cu", _da.ARGTYPES),
+    "flash_attention": ("flash_attention.cu", _fa.ARGTYPES),
 }
 
 _build_lock = threading.Lock()
@@ -222,6 +224,17 @@ def decode_attention(q, k, v, lengths, n_splits: int = 8):
     return _da.decode_attention_plain(q, k, v, lengths)
 
 
-_WRAPPERS = (mips_topk, mips_topk_int8, decode_attention)
+def flash_attention(q, k, v, causal: bool = True):
+    """Model layout: q (B,S,Hq,D); k,v (B,T,Hkv,D) -> (B,S,Hq,D); causal
+    masks key j > query i (offset 0), non-causal attends to all T keys."""
+    if _on_cuda(q, k, v):
+        o = _fa.flash_attention_cuda(_lib("flash_attention"), q, k, v,
+                                     causal)
+        _count(flash_attention)
+        return o
+    return _fa.flash_attention_plain(q, k, v, causal)
+
+
+_WRAPPERS = (mips_topk, mips_topk_int8, decode_attention, flash_attention)
 for _f in _WRAPPERS:
     _f.launches = 0

@@ -54,3 +54,18 @@ def decode_attention_ref(q, k, v, lengths):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     return o.reshape(B, Hq, D)
+
+
+def attention_ref(q, k, v, *, causal=True):
+    """Head-major GQA attention oracle. q: (B,Hq,S,D); k,v: (B,Hkv,T,D)."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, S, D)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k).float() * (D ** -0.5)
+    if causal:
+        mask = torch.arange(T, device=q.device)[None, :] <= \
+            torch.arange(S, device=q.device)[:, None]
+        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", p.to(v.dtype), v)
+    return o.reshape(B, Hq, S, D)

@@ -73,9 +73,9 @@ def main():
                     help="rows of the store written when --store has none")
     ap.add_argument("--n-queries", type=int, default=40)
     ap.add_argument("--s-th-run", type=float, default=0.9)
-    ap.add_argument("--index", choices=("auto", "flat"), default="auto",
-                    help="auto picks the tier from store size (only the "
-                         "flat tier is ported)")
+    ap.add_argument("--index", choices=("auto", "flat", "ivf"),
+                    default="auto",
+                    help="auto picks the tier from store size")
     ap.add_argument("--store", default=None,
                     help="store dir (default: temp, written anew)")
     ap.add_argument("--decode-slots", type=int, default=4)

@@ -1,11 +1,13 @@
-"""Parameters of the JAX package's model, as numpy arrays, into the port.
+"""Parameters of the JAX package's models, as numpy arrays, into the port.
 
-``params_from_jax`` takes the reference ``init_model`` pytree after
-``jax.tree_util.tree_map(np.asarray, ...)`` — uniform layer stacks are
-STACKED there, each ``blocks`` leaf shaped ``(L, ...)`` — and returns the
+``params_from_jax`` takes a reference params pytree (``init_model``'s, or
+``MiniLMEncoder.params``: ``embed``, stacked ``blocks``, ``final_norm``)
+after ``jax.tree_util.tree_map(np.asarray, ...)`` — uniform layer stacks
+are STACKED there, each ``blocks`` leaf shaped ``(L, ...)`` — and returns the
 port's params (a list of per-layer dicts) holding the same numbers, so
 both packages compute the same function. Layouts agree (``dense``
-weights are ``(d_in, d_out)`` in both), so nothing is transposed.
+weights are ``(d_in, d_out)`` in both), so nothing is transposed. The
+tensors land on ``device``, "cuda" unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ def _tree(x, fn):
     return fn(x)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     def to_t(a):
         return torch.from_numpy(np.array(a)).to(device)
 

@@ -1,6 +1,7 @@
-"""Core layer primitives in PyTorch: init helpers, norms, MLPs, RoPE, GQA
-attention — the dense-family subset of the JAX package's
-``models/layers.py``, as plain functions over dicts of tensors.
+"""Core layer primitives in PyTorch: init helpers, norms, MLPs, RoPE and
+sinusoidal positions, attention params — the dense-family subset of the
+JAX package's ``models/layers.py``, as plain functions over dicts of
+tensors.
 
 Weights keep the reference's layout (``dense`` weights are ``(d_in,
 d_out)``), so ``models/convert.py`` copies a reference pytree without
@@ -84,7 +85,7 @@ def mlp(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# Positions: RoPE (decoder), sinusoidal (the MiniLM encoder)
 # ---------------------------------------------------------------------------
 
 
@@ -101,6 +102,18 @@ def _inv_freq(head_dim, theta, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
 
 
+def sinusoidal_positions(seq_len, d_model) -> torch.Tensor:
+    """(seq_len, d_model) f32 sin/cos table, computed in numpy float64 and
+    cast once, so it is bitwise the reference's."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    ang = pos / (10000 ** (dim / d_model))
+    out = np.zeros((seq_len, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out)
+
+
 def apply_rope(x, positions, theta):
     """x: (B, S, H, D); positions: (B, S) int."""
     D = x.shape[-1]
@@ -114,7 +127,8 @@ def apply_rope(x, positions, theta):
 
 
 # ---------------------------------------------------------------------------
-# Attention (naive GQA path; the decode kernel lives in repro_torch.kernels)
+# Attention params (the attention itself runs the kernels in
+# repro_torch.kernels, or their plain versions on CPU)
 # ---------------------------------------------------------------------------
 
 
@@ -131,26 +145,3 @@ def attention_init(gen, cfg, dtype, device):
         p["q_norm"] = rmsnorm_init(hd, dtype, device)
         p["k_norm"] = rmsnorm_init(hd, dtype, device)
     return p
-
-
-def gqa_scores_softmax_out(q, k, v, mask, scale):
-    """q: (B,S,Hq,D) k,v: (B,T,Hkv,D[v]), mask: broadcastable (B,1,1,S,T) or
-    None. Returns (B,S,Hq,Dv). Softmax in f32; probabilities cast to v's
-    dtype before P.V, as in the reference."""
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(q.dtype)).float()
-    logits = logits * scale
-    if mask is not None:
-        logits = logits.masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkv->bskgv", probs.to(v.dtype), v)
-    return out.reshape(B, S, Hq, v.shape[-1])
-
-
-def causal_mask(S, T, offset, device):
-    """Query i (global pos offset+i) may attend key j iff j <= offset + i."""
-    i = torch.arange(S, device=device)[:, None]
-    j = torch.arange(T, device=device)[None, :]
-    return (j <= (i + offset))[None, None, None, :, :]

@@ -6,10 +6,11 @@ Conventions
 * Params are a dict: ``{"embed": {"w"}, "final_norm": {"scale"},
   "blocks": [one dict per layer]}`` with the reference's per-layer keys
   and shapes (``models/convert.py`` copies a reference pytree in).
-* Prefill runs the naive attention the reference engine runs
-  (``RunCfg(attn_impl="naive")``); single-token decode runs the
-  ``decode_attention`` kernel on CUDA and its plain version (the
-  reference's naive decode math) on CPU.
+* Full-sequence attention (prefill, causal; the MiniLM encoder's
+  ``kind="enc"`` layers, non-causal) runs the ``flash_attention`` kernel
+  on CUDA, single-token decode the ``decode_attention`` kernel. On CPU
+  both wrappers take their plain versions, which are the naive attention
+  the reference engine and encoder run (``RunCfg(attn_impl="naive")``).
 * The decode cache is ``{"k": (L,B,M,Hkv,Dh), "v": (L,B,M,Hkv,Dh)}``.
   Unlike the reference, which returns a new cache, ``decode_step``
   writes the new token's k/v INTO the cache it is given (no copy of the
@@ -39,7 +40,12 @@ def _check_dense(cfg):
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen, cfg, dtype, device):
+def init_block(gen, cfg, dtype, device, kind="dense"):
+    """One layer's params: ``"dense"`` (decoder) or ``"enc"`` (the
+    non-causal encoder layer); both kinds have the same keys here, as the
+    port has no MLA attention."""
+    if kind not in ("dense", "enc"):
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
     d = cfg.d_model
     return {"ln1": Lyr.rmsnorm_init(d, dtype, device),
             "attn": Lyr.attention_init(gen, cfg, dtype, device),
@@ -83,15 +89,14 @@ def _rope_q_k(cfg, p, q, k, positions):
 
 
 def gqa_fullseq(cfg, p, x, positions, *, causal=True):
-    """Returns (out (B,S,d), {"k","v"}) for prefill (naive attention)."""
+    """Returns (out (B,S,d), {"k","v"}) for prefill and the encoder."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = Lyr.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = Lyr.dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = Lyr.dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
     q, k = _rope_q_k(cfg, p, q, k, positions)
-    mask = Lyr.causal_mask(S, S, 0, x.device) if causal else None
-    out = Lyr.gqa_scores_softmax_out(q, k, v, mask, hd ** -0.5)
+    out = ops.flash_attention(q, k, v, causal)
     return Lyr.dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), \
         {"k": k, "v": v}
 
@@ -129,10 +134,14 @@ def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None):
 # ---------------------------------------------------------------------------
 
 
-def block_fullseq(cfg, p, x, positions):
-    """One dense layer over a full sequence. Returns (x, kv)."""
-    h, kv = gqa_fullseq(cfg, p["attn"], Lyr.rmsnorm(p["ln1"], x,
-                                                    cfg.norm_eps), positions)
+def block_fullseq(cfg, p, x, positions, kind="dense"):
+    """One layer over a full sequence: ``"dense"`` attends causally,
+    ``"enc"`` to every position. Returns (x, kv)."""
+    if kind not in ("dense", "enc"):
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    h, kv = gqa_fullseq(cfg, p["attn"],
+                        Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
+                        causal=(kind != "enc"))
     x = x + h
     x = x + Lyr.mlp(cfg, p["mlp"], Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, kv

@@ -46,7 +46,8 @@ def engines():
                    max_len=MAX_LEN, chunk=CHUNK)
     tcfg = dataclasses.replace(t_reduced(t_get_config("qwen3-1.7b")),
                                vocab_size=tok.vocab_size, n_layers=2)
-    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                              device="cpu")
     port = TE.Engine(tcfg, tparams, TTokenizer.from_texts(texts,
                                                          max_vocab=512),
                      max_len=MAX_LEN, chunk=CHUNK)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here is marked ``gpu`` and skips without a CUDA device
+card, and the engine and MiniLM encoder on the card against the CPU. Every test here is marked ``gpu`` and skips without a CUDA device
 (a CUDA kernel has no CPU mode); this file imports nothing of JAX, so it
 runs where only the port is installed:
 
@@ -13,6 +13,7 @@ from repro_torch.core.store import quantize_rows
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                   decode_partials_plain)
+from repro_torch.kernels.flash_attention import flash_attention_plain
 
 MIPS_SHAPES = [
     (4, 100, 16, 5, 32),
@@ -28,6 +29,18 @@ DECODE_SHAPES = [
     (1, 100, 8, 8, 32, 8),
     (3, 33, 6, 2, 8, 2),
     (2, 128, 16, 4, 64, 16),
+]
+FLASH_SHAPES = [
+    (2, 32, 32, 4, 2, 16, True),
+    (1, 40, 40, 8, 8, 32, True),
+    (2, 17, 17, 6, 2, 8, True),
+    (2, 24, 24, 4, 4, 16, False),
+    (1, 64, 64, 4, 1, 64, True),
+    (256, 64, 64, 6, 6, 64, False),     # MiniLM encode, one 256-row bucket
+    (1, 160, 160, 16, 8, 128, True),    # qwen3-1.7b prefill at max_len
+    (1, 13, 13, 16, 8, 128, True),      # a short prompt
+    (3, 100, 100, 12, 4, 128, True),    # ragged tiles, G = 3
+    (2, 70, 130, 6, 2, 96, False),      # S != T, D not a power of two
 ]
 
 
@@ -111,19 +124,87 @@ def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal", FLASH_SHAPES)
+def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, B, S, T, Hq,
+                                                  Hkv, D, causal):
+    rng = np.random.default_rng(S * 3 + T + D)
+    q, k, v = (_t(rng.normal(size=shape).astype(np.float32)).to(cuda)
+               .to(dtype) for shape in ((B, S, Hq, D), (B, T, Hkv, D),
+                                        (B, T, Hkv, D)))
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (B, S, Hq, D)
+    want = flash_attention_plain(q, k, v, causal)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_reads_strided_inputs(cuda):
+    """q, k, v as views of one fused projection (the model's layout with
+    non-contiguous batch, sequence and head strides)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, S, Hq, Hkv, D = 2, 50, 8, 2, 64
+    qkv = torch.randn((B, S, (Hq + 2 * Hkv) * D + 8), generator=g,
+                      device=cuda)
+    q = qkv[..., :Hq * D].unflatten(-1, (Hq, D))
+    k = qkv[..., Hq * D:(Hq + Hkv) * D].unflatten(-1, (Hkv, D))
+    v = qkv[..., (Hq + Hkv) * D:-8].unflatten(-1, (Hkv, D))
+    assert not q.is_contiguous()
+    for causal in (True, False):
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, causal),
+            flash_attention_plain(q, k, v, causal), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
 def test_gpu_kernel_launch_refuses_bad_inputs(cuda):
     q = torch.zeros((2, 8), device=cuda)
     with pytest.raises(ValueError):
         ops.mips_topk(q, torch.zeros((4, 8)), 1)      # mixed devices
     with pytest.raises(TypeError):
         ops.mips_topk(q.half(), torch.zeros((4, 8), device=cuda), 1)
+    qa = torch.zeros((1, 4, 2, 16), device=cuda)
+    with pytest.raises(ValueError):                   # mixed devices
+        ops.flash_attention(qa, qa.cpu(), qa)
+    with pytest.raises(TypeError):                    # no fp16 path
+        ops.flash_attention(qa.half(), qa.half(), qa.half())
+    with pytest.raises(TypeError):                    # mixed dtypes
+        ops.flash_attention(qa, qa.bfloat16(), qa)
+    wide = torch.zeros((1, 4, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError):                   # Hq % Hkv != 0
+        ops.flash_attention(torch.zeros((1, 4, 3, 16), device=cuda), qa, qa)
+
+
+@pytest.mark.gpu
+def test_gpu_minilm_encode_matches_cpu(cuda):
+    """The MiniLM encoder on the card (its layers' attention on the B4
+    kernel) against the same weights on the CPU (the plain version)."""
+    from repro_torch.core.embedder import MiniLMEncoder
+    from repro_torch.core.tokenizer import Tokenizer
+    texts = ["what is the height of aurora bridge?",
+             "who founded the meridian institute?",
+             "tell me the capital of port serrano " * 8, "", "zebra"]
+    tok = Tokenizer.from_texts(texts)
+    cpu = MiniLMEncoder(tok, seed=0, device="cpu")
+    gpu = MiniLMEncoder(tok, params=_to(cpu.params, cuda), device=cuda)
+    n0 = ops.flash_attention.launches
+    got = gpu.encode(texts * 7)
+    assert ops.flash_attention.launches - n0 == 6      # one 64-row bucket
+    np.testing.assert_allclose(got, cpu.encode(texts * 7), rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.gpu
 def test_gpu_engine_greedy_tokens_match_cpu(cuda):
-    """The smoke-arch engine on the card (decode attention on the B3
-    kernel, f32 session cache) emits the same greedy tokens as on the CPU
-    (the plain version)."""
+    """The smoke-arch engine on the card (prefill attention on the B4
+    kernel, decode attention on the B3 kernel, f32 session cache) emits
+    the same greedy tokens as on the CPU (the plain versions)."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -139,6 +220,7 @@ def test_gpu_engine_greedy_tokens_match_cpu(cuda):
     on_gpu = _to(params, cuda)
     outs = []
     n0 = ops.decode_attention.launches
+    f0 = ops.flash_attention.launches
     for p in (params, on_gpu):
         s = Engine(cfg, p, tok, max_len=64, chunk=4).start_session(
             "what is the height of aurora bridge?", max_new=20)
@@ -147,6 +229,7 @@ def test_gpu_engine_greedy_tokens_match_cpu(cuda):
         outs.append(s.out_ids)
     assert outs[0] == outs[1]
     assert ops.decode_attention.launches > n0
+    assert ops.flash_attention.launches == f0 + cfg.n_layers
 
 
 def _to(x, device):

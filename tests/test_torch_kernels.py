@@ -15,9 +15,11 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro_torch.core.store import quantize_rows
 from repro_torch.kernels import ops, ref
+from repro.models import layers as JLyr
 from repro_torch.kernels.decode_attention import (combine_splits,
                                                   decode_attention_plain,
                                                   decode_partials_plain)
+from repro_torch.kernels.flash_attention import flash_attention_plain
 
 MIPS_SHAPES = [
     (4, 100, 16, 5, 32),
@@ -33,6 +35,14 @@ DECODE_SHAPES = [
     (1, 100, 8, 8, 32, 8),
     (3, 33, 6, 2, 8, 2),
     (2, 128, 16, 4, 64, 16),
+]
+# the reference's flash_attention contract shapes (tests/test_kernels.py)
+FLASH_SHAPES = [
+    (2, 32, 32, 4, 2, 16, True),
+    (1, 40, 40, 8, 8, 32, True),
+    (2, 17, 17, 6, 2, 8, True),
+    (2, 24, 24, 4, 4, 16, False),
+    (1, 64, 64, 4, 1, 64, True),
 ]
 
 
@@ -208,3 +218,88 @@ def test_decode_attention_plain_is_the_reference_engine_math(cache_dtype):
     got = ops.decode_attention(_t(q), kt, vt, lengths).to(td).float()
     tol = 1e-5 if cache_dtype == "float32" else 8e-3   # one bf16 ulp near 1
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# B4 flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(B, S, T, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, T, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, T, Hkv, D)).astype(np.float32))
+
+
+def _jax_flash_ref(q, k, v, causal):
+    """ref.attention_ref of the JAX package, in the model layout."""
+    qt, kt, vt = (jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))
+                  for a in (q, k, v))
+    return jnp.transpose(jref.attention_ref(qt, kt, vt, causal=causal),
+                         (0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal", FLASH_SHAPES)
+def test_flash_attention_plain_matches_jax_kernel(B, S, T, Hq, Hkv, D,
+                                                  causal):
+    """The CPU path of ops.flash_attention against the Pallas kernel
+    (interpret mode, 16 x 16 blocks as the reference test runs it) and
+    both packages' attention oracles, at the f32 contract 2e-4."""
+    q, k, v = _flash_inputs(B, S, T, Hq, Hkv, D, S + Hq)
+    o = ops.flash_attention(_t(q), _t(k), _t(v), causal)
+    assert o.shape == (B, S, Hq, D) and o.dtype == torch.float32
+    oj = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal, 16, 16)
+    np.testing.assert_allclose(o.numpy(), np.asarray(oj), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(o.numpy(), np.asarray(_jax_flash_ref(
+        q, k, v, causal)), rtol=2e-4, atol=2e-4)
+    o_ref = ref.attention_ref(*(_t(a).transpose(1, 2) for a in (q, k, v)),
+                              causal=causal).transpose(1, 2)
+    np.testing.assert_allclose(o.numpy(), o_ref.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_flash_attention_plain_bf16():
+    """bf16 inputs, against the Pallas kernel and the oracle at the bf16
+    contract 5e-2; the output stays in the inputs' dtype."""
+    q, k, v = (a.astype(jnp.bfloat16) for a in
+               (jnp.asarray(x) for x in _flash_inputs(2, 32, 32, 4, 2, 16,
+                                                      0)))
+    tq, tk, tv = (_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, True)
+    assert o.dtype == torch.bfloat16
+    oj = jops.flash_attention(q, k, v, True, 16, 16)
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(oj, np.float32), rtol=5e-2,
+                               atol=5e-2)
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(_jax_flash_ref(q, k, v, True),
+                                          np.float32), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("causal,S,T", [(True, 23, 23), (False, 23, 23),
+                                        (False, 9, 30), (True, 12, 30)])
+def test_flash_attention_plain_is_the_reference_naive_math(causal, S, T):
+    """The plain version is the naive attention the reference engine and
+    encoder run (layers.gqa_scores_softmax_out with the causal mask at
+    offset 0), also where S != T."""
+    q, k, v = _flash_inputs(2, S, T, 6, 3, 16, S * T)
+    mask = JLyr.causal_mask(S, T, 0) if causal else None
+    want = JLyr.gqa_scores_softmax_out(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), mask, 16 ** -0.5)
+    got = flash_attention_plain(_t(q), _t(k), _t(v), causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_flash_attention_cpu_takes_the_plain_version_uncounted():
+    q, k, v = (_t(a) for a in _flash_inputs(1, 8, 8, 2, 1, 16, 3))
+    n0 = ops.flash_attention.launches
+    o = ops.flash_attention(q, k, v, False)
+    assert ops.flash_attention.launches == n0
+    assert torch.equal(o, flash_attention_plain(q, k, v, False))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.to("meta"), v)

@@ -56,7 +56,8 @@ def _port_engine(jax_engine):
                               vocab_size=jax_engine.cfg.vocab_size,
                               n_layers=jax_engine.cfg.n_layers)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                    jax_engine.params))
+                                                    jax_engine.params),
+                             device="cpu")
     return Engine(cfg, params, Tokenizer(list(jax_engine.tok.words)),
                   max_len=jax_engine.max_len, chunk=jax_engine.chunk)
 
