@@ -14,8 +14,10 @@ result line is printed only when every phase passed:
    memory and spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the serving shapes plus ragged (and bf16) cases, timed from the
-   profiler and with CUDA events beside the plain version and a one-call
-   PyTorch yardstick;
+   profiler (median, min and max of three runs) and with CUDA events
+   beside the plain version and a one-call PyTorch yardstick; B3 as
+   ``gqa_decode`` calls it (one launch: the splits and their merge), its
+   in-block design beside it;
 4. slice, fp16 store — writes the paper's 150,000-pair store, opens it
    with ``StorInfer.open`` (flat index, qwen3-1.7b at full width, random
    weights from ``--seed``) and serves a mixed stream through
@@ -49,6 +51,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12            # CUDA cores, the f32 FMAs of B1 and B3
+# tensor cores, B4: an f32 product is three TF32 products (3xTF32)
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 INT8_OPS = 1979e12           # int8 rate, B2's int8 products
 TOL_F32 = 1e-5               # B1 contract (rtol and atol)
 TOL_DECODE_F32 = 2e-4        # B3 contract with an f32 cache
@@ -155,12 +160,22 @@ def device_ms(torch, fn, iters, flush=None, kernel=None):
     return tot / iters / 1e3 if tot > 0 else None
 
 
-def timed(torch, fn, iters, flush=None, kernel=None):
-    """(device ms from the profiler, or the event time when the trace has
-    none; the event time per call, host gaps included)."""
+def timed(torch, fn, iters, flush=None, kernel=None, reps=3):
+    """((min, median, max) device ms per call over ``reps`` profiled runs
+    of ``iters`` calls each, from the profiler, or the event time when a
+    trace has none; the event time per call, host gaps included)."""
     call = time_ms(torch, fn, iters, flush)
-    dev = device_ms(torch, fn, iters, flush, kernel)
-    return (dev if dev is not None else call), call
+    devs = []
+    for _ in range(reps):
+        dev = device_ms(torch, fn, iters, flush, kernel)
+        devs.append(dev if dev is not None else call)
+    devs.sort()
+    return (devs[0], devs[len(devs) // 2], devs[-1]), call
+
+
+def spread(t):
+    """'median (min-max)' of a timed() triple, in ms."""
+    return f"{t[1]:.4f} ({t[0]:.4f}-{t[2]:.4f})"
 
 
 def bound(nbytes, ops, peak):
@@ -248,8 +263,8 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     lib_gemm, _ = timed(torch, lambda: torch.topk(q @ x32.t(), k), 10, flush)
     del x32
     print(f"B1 library yardstick: matmul + topk with the f32 upcast "
-          f"{lib:.4f} ms, on a store upcast beforehand {lib_gemm:.4f} ms "
-          "(device time per call)")
+          f"{spread(lib)} ms, on a store upcast beforehand "
+          f"{spread(lib_gemm)} ms (device time per call)")
     nt = -(-N // tn)
     b_ms, b_by = bound(nb(q, x) + nt * Q * k * 8, 2 * Q * N * D, F32_FLOPS)
     rows.append(dict(name="mips_topk", route="cuda",
@@ -312,19 +327,23 @@ def phase_kernels(torch, np, args, dev, prompt_len):
         qq = torch.randn((B, Hq, Dh), generator=g, device=dev)
         kk = torch.randn((B, T_, Hkv, Dh), generator=g, device=dev).to(dt)
         vv = torch.randn((B, T_, Hkv, Dh), generator=g, device=dev).to(dt)
-        o, m, l = da.decode_partials_cuda(lib_da, qq, kk, vv, lengths, ns_)
-        op, mp, lp = da.decode_partials_plain(qq, kk, vv, lengths, ns_)
-        # the wrapper gqa_decode calls: kernel + combine_splits
+        # the one launch gqa_decode makes (the splits and their merge), and
+        # the in-block design, against the plain split version and the
+        # naive math
         got = ops.decode_attention(qq, kk, vv, lengths, ns_)
+        blk = da.decode_attention_cuda(lib_da, qq, kk, vv, lengths, ns_, 0)
+        split = da.combine_splits(*da.decode_partials_plain(
+            qq, kk, vv, lengths, ns_))
         want = da.decode_attention_plain(qq, kk, vv, lengths)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
-        check(torch.allclose(m, mp, rtol=1e-5, atol=1e-5)
-              and torch.allclose(l, lp, rtol=1e-4, atol=1e-4)
-              and torch.allclose(o, op, rtol=tol, atol=tol)
+        check(torch.allclose(got, split, rtol=tol, atol=tol)
+              and torch.allclose(blk, split, rtol=tol, atol=tol)
               and torch.allclose(got, want, rtol=tol, atol=tol),
               f"B3 {label}: differs from plain (max {e})")
-        print(f"B3 {label}: ok max_abs_err={e:.3e} (tol {tol})")
+        print(f"B3 {label}: ok max_abs_err={e:.3e} vs the naive math, "
+              f"{float((got - split).abs().max()):.3e} vs the plain split "
+              f"version (tol {tol})")
         return e, (qq, kk, vv)
 
     main_len = torch.full((B,), 100, dtype=torch.int32, device=dev)
@@ -336,13 +355,13 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     b3_case(157, rag, torch.bfloat16, ns, TOL_DECODE_BF16,
             "ragged T=157 bf16")
     b3_case(157, rag, torch.float32, 3, TOL_DECODE_F32, "ragged T=157 f32")
-    ms, call = timed(torch, lambda: da.decode_partials_cuda(
-        lib_da, qq, kk, vv, main_len, ns), 200, None,
-        "decode_attention_kernel")
-    plain, plain_call = timed(torch, lambda: da.decode_partials_plain(
-        qq, kk, vv, main_len, ns), 50)
-    wrapper, wrapper_call = timed(torch, lambda: ops.decode_attention(
-        qq, kk, vv, main_len, ns), 200)
+    ms, call = timed(torch, lambda: ops.decode_attention(
+        qq, kk, vv, main_len, ns), 200, None, "decode_attention_kernel")
+    inblock, inblock_call = timed(torch, lambda: da.decode_attention_cuda(
+        lib_da, qq, kk, vv, main_len, ns, 0), 200, None,
+        "decode_attention_inblock_kernel")
+    plain, plain_call = timed(torch, lambda: da.combine_splits(
+        *da.decode_partials_plain(qq, kk, vv, main_len, ns)), 50)
     pos = torch.arange(T, device=dev)
     mask = (pos[None, :] <= main_len[:, None])[:, None, None, :]
     qs_ = qq.to(kk.dtype)[:, :, None, :]
@@ -351,11 +370,12 @@ def phase_kernels(torch, np, args, dev, prompt_len):
         qs_, kt, vt, attn_mask=mask, enable_gqa=True), 200)
     att = int((main_len.clamp(max=T - 1) + 1).sum())
     kv_bytes = att * Hkv * Dh * kk.element_size() * 2
-    out_bytes = B * ns * Hq * (Dh + 2) * 4
-    b_ms, b_by = bound(nb(qq, main_len) + kv_bytes + out_bytes,
+    b_ms, b_by = bound(nb(qq, main_len) + kv_bytes + B * Hq * Dh * 4,
                        4 * att * Hq * Dh, F32_FLOPS)
-    print(f"B3 wrapper (kernel + combine_splits): device {wrapper:.4f} ms, "
-          f"call {wrapper_call:.4f} ms")
+    print(f"B3 as gqa_decode calls it (ops.decode_attention, one launch): "
+          f"device {spread(ms)} ms, per call with host gaps {call:.4f} ms; "
+          f"in-block design {spread(inblock)} ms, per call "
+          f"{inblock_call:.4f} ms")
     rows.append(dict(name="decode_attention", route="cuda",
                      source="src/repro_torch/csrc/decode_attention.cu",
                      replaces="src/repro/kernels/decode_attention.py:47",
@@ -399,8 +419,10 @@ def phase_kernels(torch, np, args, dev, prompt_len):
         # lower triangle
         pairs = sum(min(i + 1, T_) for i in range(S_)) if causal \
             else S_ * T_
-        b_ms_, b_by_ = bound(2 * nb(qq) + nb(kk, vv),
-                             4 * B_ * Hq_ * D_ * pairs, F32_FLOPS)
+        ops_ = 4 * B_ * Hq_ * D_ * pairs
+        b_ms_, b_by_ = bound(2 * nb(qq) + nb(kk, vv), 3 * ops_, TF32_FLOPS) \
+            if qq.dtype == torch.float32 else \
+            bound(2 * nb(qq) + nb(kk, vv), ops_, BF16_FLOPS)
         return ms_, plain_, lib_, (call_, plain_call_, lib_call_), b_ms_, \
             b_by_
 
@@ -434,18 +456,22 @@ def phase_kernels(torch, np, args, dev, prompt_len):
                                 (f"(b) S=T={prompt_len}", real_in)):
         t = b4_timing(qq, kk, vv, True, 200)
         print(f"timing flash_attention {label} f32 causal (device time per "
-              f"call, profiler): kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
-              f"library {t[2]:.4f} ms, bound {t[4]:.5f} ms ({t[5]}); per "
-              f"call with host gaps (CUDA events): kernel {t[3][0]:.4f}, "
-              f"plain {t[3][1]:.4f}, library {t[3][2]:.4f} ms")
+              f"call, profiler, median (min-max) of 3): kernel "
+              f"{spread(t[0])} ms, plain {spread(t[1])} ms, library "
+              f"{spread(t[2])} ms, bound {t[4]:.5f} ms ({t[5]}); per call "
+              f"with host gaps (CUDA events): kernel {t[3][0]:.4f}, plain "
+              f"{t[3][1]:.4f}, library {t[3][2]:.4f} ms")
     for r in rows:
         c = r["calls"]
         print(f"timing {r['name']} {r.get('shape', '')} (device time per "
-              "call, profiler): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); per call with host gaps (CUDA events): "
-              f"kernel {c[0]:.4f}, plain {c[1]:.4f}, library {c[2]:.4f} ms")
+              "call, profiler, median (min-max) of 3): kernel "
+              f"{spread(r['ms'])} ms, plain {spread(r['plain_ms'])} ms, "
+              f"library {spread(r['library_ms'])} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); per call with "
+              f"host gaps (CUDA events): kernel {c[0]:.4f}, plain "
+              f"{c[1]:.4f}, library {c[2]:.4f} ms")
+        for key in ("ms", "plain_ms", "library_ms"):
+            r[key] = r[key][1]
     del flush
     return rows
 
@@ -595,7 +621,8 @@ def decode_profile(torch, engine, prompt, batch):
     cpu = [(e.key[:70], e.self_cpu_time_total / 1e3, e.count)
            for e in host[:8]]
     ops = sum(e.count for e in ev if e.key.startswith("aten::"))
-    return wall, busy, top, cpu, ops
+    launches = sum(e.count for e in ev if e.key.startswith("cudaLaunchKernel"))
+    return wall, busy, top, cpu, ops, launches
 
 
 def make_corpus(seed):
@@ -674,11 +701,12 @@ def phase_slices(torch, np, args, card, corpus):
         tps, step_ms = decode_rate(torch, engine, miss_prompt, bsz)
         print(f"decode qwen3-1.7b full width fp32 weights, batch {bsz}: "
               f"{tps:.1f} tokens/s, {step_ms:.2f} ms/step on {card}")
-    wall, busy, top, cpu, n_ops = decode_profile(torch, engine, miss_prompt,
-                                                 4)
+    wall, busy, top, cpu, n_ops, n_launch = decode_profile(
+        torch, engine, miss_prompt, 4)
     print(f"decode chunk profile (batch 4, {engine.chunk} steps, profiler "
           f"on): wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
-          f"device idle share {1 - busy / wall:.3f}, {n_ops} aten ops")
+          f"device idle share {1 - busy / wall:.3f}, {n_ops} aten ops, "
+          f"{n_launch} cudaLaunchKernel calls")
     for name, ms, n in top:
         print(f"  device {ms:9.3f} ms  x{n:<5d} {name}")
     for name, ms, n in cpu:

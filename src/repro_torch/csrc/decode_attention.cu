@@ -1,168 +1,450 @@
 // B3 decode_attention: split-KV flash decoding for one new token per row,
-// grouped-query attention, per-split partials (o, m, l).
+// grouped-query attention, with the merge of the splits in the same launch.
 //
 // Replaces the JAX package's kernels/decode_attention.py:
-// decode_attention_pallas (_decode_kernel). Same contract: q (B, Hq, D) f32,
-// k and v (B, T, Hkv, D) in the cache's dtype (bf16 or f32), Hq = G * Hkv;
-// row b attends positions [0, lengths[b]] inclusive; the T axis splits into
-// ns chunks of tc = ceil(T / ns) positions, and each chunk emits
+// decode_attention_pallas (_decode_kernel) together with combine_splits, as
+// kernels/ops.py:decode_attention calls them. Same contract: q (B, Hq, D)
+// f32, k and v (B, T, Hkv, D) in the cache's dtype (bf16 or f32), Hq = G *
+// Hkv; row b attends positions [0, lengths[b]] inclusive; the T axis splits
+// into ns chunks of tc = ceil(T / ns) positions, and each chunk forms
 // o = sum_t p_t v_t (unnormalised), m = max_t s_t, l = sum_t p_t with
-// s = (q . k) * D^-0.5 and p = exp(s - m), all f32. As in the reference, p is
-// rounded to the cache dtype before it multiplies v (p.astype(v.dtype)),
-// while l sums the unrounded p. kernels/decode_attention.py:combine_splits
-// does the max-rescale merge, outside the kernel as in the reference.
+// s = (q . k) * D^-0.5 and p = exp(s - m), all f32. As in the reference, p
+// is rounded to the cache dtype before it multiplies v (p.astype(v.dtype)),
+// while l sums the unrounded p. The chunks then merge as combine_splits
+// does: m_g = max m, o = sum o * exp(m - m_g) / max(sum l * exp(m - m_g),
+// 1e-30). The output is (B, Hq, D) f32; no partial reaches device memory.
 //
-// What bounds it on an H100: it reads the cache once, 2*B*T*Hkv*D elements,
-// with 4*B*Hq*T*D f32 operations; at the serving shapes (B = 4, T = 160,
-// Hkv = 8, D = 128, bf16) that is 2.6 MB, under a microsecond of memory
-// time, so one launch costs about what launching it costs.
+// What bounds it on an H100: the cache rows it must read, 2 * (attended
+// positions) * Hkv * D elements; at the serving shapes (B = 4, T = 160,
+// Hkv = 8, D = 128, bf16, lengths ~46-100) that is 0.4-1.7 MB, under a
+// microsecond of memory time, so a launch costs about what launching it and
+// one round trip to memory cost.
 //
-// Design: one block per (kv head, split, row): the G query heads that share
-// a kv head share each k and v row read. A warp scores one position at a
-// time (lanes split D, shuffle reduction), the block then forms m, l and p
-// in shared memory, and each thread accumulates the P.V sum for some of the
-// D output columns, reading v rows coalesced. Positions past T are skipped.
-#include <cuda_bf16.h>
+// Design: each split gets a block of four warps, which share its rows, and
+// the ns blocks of a (kv head, row) form a thread block cluster: after a
+// cluster barrier each block merges a share of the outputs, reading its
+// peers' partials through distributed shared memory. The G query heads of
+// a kv head share each k and v row read. A lane reads 16 bytes (8 bf16 or
+// 4 f32); a row of D elements takes D / 8 (bf16) or D / 4 (f32) lanes, so a
+// warp reads 32 / that many rows at once and keeps a few row loads per lane
+// in flight. A split reads only the positions
+// [t0, min(t0 + tc, T, lengths[b] + 1)): no k or v row past the length,
+// and nothing at all when it lies wholly past it (its merge weight
+// exp(-1e30 - m_g) is exactly 0 in the reference, so it is left out). The
+// v rows are loaded together with the k rows, so one round trip to memory
+// serves both, and the shuffle sums of all rows and heads a lane holds are
+// sent side by side. A cluster holds at most 16 blocks; more splits take
+// the in-block design (design = 0): one block per (kv head, row) with one
+// warp per split (at most 8 warps; a warp takes splits w, w + 8, ...),
+// merging in its own shared memory. On the serving shapes the cluster
+// design measured faster at batch 1 and level at batch 4 (PERF.md);
+// chip_smoke.py times both on the same inputs.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <cuda_bf16.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNeg = -1e30f;
+constexpr int kMaxWarps = 8;     // warps (splits in flight), in-block design
+constexpr int kU = 10;           // row loads a lane keeps in flight there
+constexpr int kMaxCluster = 16;  // splits of the cluster design
+constexpr int kClusterWarps = 4; // warps sharing a split there
+constexpr int kClusterU = 4;     // row loads a lane keeps in flight there
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-// p rounded to the dtype of v, back in f32 (identity for an f32 cache)
-__device__ __forceinline__ float round_like(float p, const float*) { return p; }
-__device__ __forceinline__ float round_like(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
+struct Args {
+  const float* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  float* o;
+  int T, Hq, Hkv, D, ns, tc;
+  float scale;
+};
 
+// 16 bytes of the cache as floats
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+// p rounded to the cache dtype, back in f32 (identity for an f32 cache)
 template <typename KV>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-                        const KV* __restrict__ v,
-                        const int* __restrict__ lengths, int T, int Hq,
-                        int Hkv, int D, int ns, int tc, float scale,
-                        float* __restrict__ o, float* __restrict__ m_out,
-                        float* __restrict__ l_out) {
-  extern __shared__ float smem[];
-  const int G = Hq / Hkv;
-  float* qsh = smem;        // [G][D]
-  float* s = qsh + G * D;   // [G][tc]
+__device__ __forceinline__ float round_like(float p) {
+  if constexpr (sizeof(KV) == 2)
+    return __bfloat162float(__float2bfloat16_rn(p));
+  else
+    return p;
+}
 
-  const int h = blockIdx.x, sp = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
-  const int len = lengths[b];
-  const int t0 = sp * tc;
-
-  const float* qb = q + (static_cast<int64_t>(b) * Hq + h * G) * D;
-  for (int e = tid; e < G * D; e += kThreads) qsh[e] = qb[e];
-  __syncthreads();
-
-  // scores: one warp per position
-  for (int tt = warp; tt < tc; tt += kWarps) {
-    const int t = t0 + tt;
-    const bool valid = t < T && t <= len;
-    const KV* kr = k + ((static_cast<int64_t>(b) * T + t) * Hkv + h) * D;
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-      if (valid)
-        for (int d = lane; d < D; d += 32)
-          part = fmaf(qsh[g * D + d], to_f32(kr[d]), part);
+// this lane's 16 bytes of rows j0 + u * step (u < KU) of a split; zero
+// past its n attended rows
+template <int KU>
+__device__ __forceinline__ void load_rows(const char* p, int64_t row_bytes,
+                                          int j0, int step, int n, bool on,
+                                          uint4 (&out)[KU]) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) s[g * tc + tt] = valid ? part * scale : kNeg;
-    }
+  for (int u = 0; u < KU; ++u) {
+    const int i = j0 + u * step;
+    out[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (on && i < n)
+      out[u] = __ldg(reinterpret_cast<const uint4*>(p + i * row_bytes));
   }
-  __syncthreads();
+}
 
-  // m, l and p (rounded like v) per query head: one warp per head
-  const int64_t ml = (static_cast<int64_t>(b) * ns + sp) * Hq + h * G;
-  for (int g = warp; g < G; g += kWarps) {
-    float* sg = s + g * tc;
-    float mx = -INFINITY;
-    for (int tt = lane; tt < tc; tt += 32) mx = fmaxf(mx, sg[tt]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int tt = lane; tt < tc; tt += 32) {
-      const float p = expf(sg[tt] - mx);
-      sum += p;
-      sg[tt] = round_like(p, k);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      m_out[ml + g] = mx;
-      l_out[ml + g] = sum;
-    }
+template <int NWG>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (NWG == 1)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// The NWG warps of a group (a block when NWG > 1) form one split's partial
+// [m (G)][l (G)][o (G x D)] of the attended positions [t0, t0 + n) for the
+// G query heads of kv head h in row b, into `part` (shared memory). Warp wg
+// of the group reads rows wg * rpw + r, then every NWG * rpw further ones.
+// qs holds the G query rows; sc and ps are the group's [G][tc] scores and
+// probabilities; red (NWG > 1) is [NWG][G][D] for the sum over warps. A
+// split with n <= 0 gets m = -inf and no o: the merge leaves it out.
+template <typename KV, int GM, int NWG, int KU>
+__device__ __forceinline__ void split_partial(const Args& a, int b, int h,
+                                              int G, int t0, int n, int wg,
+                                              const float* qs, float* sc,
+                                              float* ps, float* red,
+                                              float* part) {
+  constexpr int V = 16 / sizeof(KV);
+  const int lane = threadIdx.x & 31;
+  float* pm = part;
+  float* pl = part + G;
+  float* po = part + 2 * G;
+  if (n <= 0) {
+    if (wg == 0 && lane < G) pm[lane] = -INFINITY;
+    return;
   }
-  __syncthreads();
+  const int D = a.D, nch = D / V;
+  int lpr = 1;  // lanes per row
+  while (lpr < nch) lpr <<= 1;
+  const int rpw = 32 / lpr, r = lane / lpr, c = lane % lpr;
+  const bool on = c < nch;
+  const int first = wg * rpw + r, step = NWG * rpw;  // this lane's rows
+  const int64_t row_bytes = static_cast<int64_t>(a.Hkv) * D * sizeof(KV);
+  const int64_t off =
+      (static_cast<int64_t>(b) * a.T + t0) * row_bytes +
+      (static_cast<int64_t>(h) * D + c * V) * sizeof(KV);
+  const char* kb = static_cast<const char*>(a.k) + off;
+  const char* vb = static_cast<const char*>(a.v) + off;
+  const int per = KU * step;  // rows of one batch
 
-  // o = P.V for this split, four query heads at a time
-  const int t_end = min(tc, T - t0);
-  for (int g0 = 0; g0 < G; g0 += 4) {
-    for (int d = tid; d < D; d += kThreads) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int tt = 0; tt < t_end; ++tt) {
-        const float vv = to_f32(
-            v[((static_cast<int64_t>(b) * T + t0 + tt) * Hkv + h) * D + d]);
+  uint4 vr[KU];
+  load_rows<KU>(vb, row_bytes, first, step, n, on, vr);  // in flight with k
+  for (int j0 = first; j0 - first < n; j0 += per) {
+    uint4 kr[KU];
+    load_rows<KU>(kb, row_bytes, j0, step, n, on, kr);
+    // every lane's share of the KU x G dot products first, then their
+    // sums over the lpr lanes of a row, all KU x G shuffles of a step
+    // independent of each other
+    float s[KU][GM];
 #pragma unroll
-        for (int gg = 0; gg < 4; ++gg)
-          if (g0 + gg < G) acc[gg] = fmaf(s[(g0 + gg) * tc + tt], vv, acc[gg]);
+    for (int u = 0; u < KU; ++u) {
+      float kf[V];
+      unpack(kr[u], kf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        s[u][g] = 0.f;
+        if (on && g < G) {
+          const float* qg = qs + g * D + c * V;
+#pragma unroll
+          for (int e = 0; e < V; ++e) s[u][g] = fmaf(qg[e], kf[e], s[u][g]);
+        }
       }
+    }
+    for (int o = lpr >> 1; o > 0; o >>= 1)
 #pragma unroll
-      for (int gg = 0; gg < 4; ++gg)
-        if (g0 + gg < G) o[(ml + g0 + gg) * D + d] = acc[gg];
+      for (int u = 0; u < KU; ++u)
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+          s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const int i = j0 + u * step;
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+        if (g < G && c == 0 && i < n) sc[g * a.tc + i] = s[u][g] * a.scale;
+    }
+  }
+  group_sync<NWG>();
+
+  // m, l and p (rounded like v) per query head, the G heads' reductions
+  // side by side; every warp of the group forms them over the whole split
+  // and writes the same p, so each reads back what it needs unsynchronised
+  float mx[GM], sum[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    mx[g] = -INFINITY;
+    sum[g] = 0.f;
+    if (g < G)
+      for (int i = lane; i < n; i += 32) mx[g] = fmaxf(mx[g], sc[g * a.tc + i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g < G)
+      for (int i = lane; i < n; i += 32) {
+        const float p = expf(sc[g * a.tc + i] - mx[g]);
+        sum[g] += p;
+        ps[g * a.tc + i] = round_like<KV>(p);
+      }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      sum[g] += __shfl_xor_sync(0xffffffffu, sum[g], o);
+  if (wg == 0 && lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) {
+        pm[g] = mx[g];
+        pl[g] = sum[g];
+      }
+  }
+  __syncwarp();
+
+  // o = P.V over this warp's rows of the split
+  float acc[GM][V];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
+  for (int j0 = first; j0 - first < n; j0 += per) {
+    if (j0 > first) load_rows<KU>(vb, row_bytes, j0, step, n, on, vr);
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const int i = j0 + u * step;
+      if (i >= n) continue;
+      float vf[V];
+      unpack(vr[u], vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        const float p = ps[g * a.tc + i];
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+    }
+  }
+  // sum over the rpw rows a warp reads at once, then over the group's warps
+  for (int o = lpr; o < 32; o <<= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+  float* dst = NWG == 1 ? po : red + wg * G * D;
+  if (r == 0 && on) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[g * D + c * V + e] = acc[g][e];
+    }
+  }
+  if constexpr (NWG > 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * D; i += NWG * 32) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < NWG; ++w) t += red[w * G * D + i];
+      po[i] = t;
     }
   }
 }
 
+// combine_splits for outputs i0, i0 + step, ... of the G x D block of
+// (row b, kv head h); part(s) points at split s's [m][l][o]
+template <typename Part>
+__device__ __forceinline__ void merge(const Args& a, int b, int h, int G,
+                                      int i0, int step, Part part) {
+  float* ob = a.o + (static_cast<int64_t>(b) * a.Hq + h * G) * a.D;
+  for (int i = i0; i < G * a.D; i += step) {
+    const int g = i / a.D;
+    float mg = -INFINITY;
+    for (int s = 0; s < a.ns; ++s) mg = fmaxf(mg, part(s)[g]);
+    float L = 0.f, O = 0.f;
+    for (int s = 0; s < a.ns; ++s) {
+      const float* ps = part(s);
+      const float m = ps[g];
+      if (m == -INFINITY) continue;  // no attended position in split s
+      const float w = expf(m - mg);
+      L = fmaf(ps[G + g], w, L);
+      O = fmaf(ps[2 * G + i], w, O);
+    }
+    ob[i] = O / fmaxf(L, 1e-30f);
+  }
+}
+
+__device__ __forceinline__ void load_q(const Args& a, int b, int h, int G,
+                                       float* qs) {
+  const float4* qb = reinterpret_cast<const float4*>(
+      a.q + (static_cast<int64_t>(b) * a.Hq + h * G) * a.D);
+  for (int e = threadIdx.x; e < G * a.D / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(qs)[e] = qb[e];
+}
+
+// in-block design: grid (Hkv, B), min(ns, kMaxWarps) warps, one per split
+template <typename KV, int GM>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+decode_attention_inblock_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [G][D]
+  const int G = a.Hq / a.Hkv, h = blockIdx.x, b = blockIdx.y;
+  const int nw = blockDim.x / 32, warp = threadIdx.x / 32;
+  const int psz = 2 * G + G * a.D;               // one split's partial
+  float* parts = qs + G * a.D;                   // [ns][psz]
+  float* sc = parts + a.ns * psz + 2 * warp * G * a.tc;  // [2][G][tc]
+  const int last = min(a.lengths[b], a.T - 1);   // last attended position
+  load_q(a, b, h, G, qs);
+  __syncthreads();
+  for (int sp = warp; sp < a.ns; sp += nw) {
+    const int t0 = sp * a.tc;
+    const int n = min(min(a.tc, a.T - t0), last + 1 - t0);
+    split_partial<KV, GM, 1, kU>(a, b, h, G, t0, n, 0, qs, sc,
+                                 sc + G * a.tc, nullptr, parts + sp * psz);
+  }
+  __syncthreads();
+  merge(a, b, h, G, threadIdx.x, blockDim.x,
+        [&](int s) -> const float* { return parts + s * psz; });
+}
+
+// cluster design: grid (ns, Hkv, B), kClusterWarps warps per block sharing
+// one split, the ns blocks of a (kv head, row) one cluster
+template <typename KV, int GM>
+__global__ void __launch_bounds__(32 * kClusterWarps)
+decode_attention_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  const int G = a.Hq / a.Hkv, sp = blockIdx.x, h = blockIdx.y,
+            b = blockIdx.z;
+  float* part = qs + G * a.D;
+  float* sc = part + 2 * G + G * a.D;
+  float* red = sc + 2 * G * a.tc;
+  cg::cluster_group cl = cg::this_cluster();
+  const int last = min(a.lengths[b], a.T - 1);
+  load_q(a, b, h, G, qs);
+  __syncthreads();
+  const int t0 = sp * a.tc;
+  const int n = min(min(a.tc, a.T - t0), last + 1 - t0);
+  split_partial<KV, GM, kClusterWarps, kClusterU>(
+      a, b, h, G, t0, n, threadIdx.x / 32, qs, sc, sc + G * a.tc, red, part);
+  cl.sync();  // every partial written
+  merge(a, b, h, G, static_cast<int>(cl.block_rank()) * blockDim.x +
+                        threadIdx.x,
+        a.ns * blockDim.x, [&](int s) -> const float* {
+          return cl.map_shared_rank(part, static_cast<unsigned>(s));
+        });
+  cl.sync();  // peers' shared memory stays until every block has read it
+}
+
+constexpr int kMaxSmem = 227 * 1024;
+
+template <typename KV, int GM>
+cudaError_t launch(const Args& a, int B, int design, cudaStream_t stream) {
+  const int G = a.Hq / a.Hkv;
+  if (design == 0) {
+    // the attribute once per instantiation, not per launch
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        decode_attention_inblock_kernel<KV, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (attr != cudaSuccess) return attr;
+    const int nw = a.ns < kMaxWarps ? a.ns : kMaxWarps;
+    const size_t smem = sizeof(float) *
+        (static_cast<size_t>(G) * a.D + static_cast<size_t>(a.ns) *
+         (2 * G + G * a.D) + static_cast<size_t>(nw) * 2 * G * a.tc);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    decode_attention_inblock_kernel<KV, GM><<<dim3(a.Hkv, B), 32 * nw, smem,
+                                      stream>>>(a);
+    return cudaGetLastError();
+  }
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_attention_kernel<KV, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(decode_attention_kernel<KV, GM>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                1);
+  }();
+  if (attr != cudaSuccess) return attr;
+  if (a.ns > kMaxCluster) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) *
+      (static_cast<size_t>(G) * a.D + 2 * G + static_cast<size_t>(G) * a.D +
+       static_cast<size_t>(2) * G * a.tc +
+       static_cast<size_t>(kClusterWarps) * G * a.D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.ns, a.Hkv, B);
+  cfg.blockDim = dim3(32 * kClusterWarps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = a.ns;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, decode_attention_kernel<KV, GM>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <typename KV>
-cudaError_t launch(const float* q, const void* k, const void* v,
-                   const int* lengths, int B, int T, int Hq, int Hkv, int D,
-                   int ns, float scale, float* o, float* m, float* l,
-                   cudaStream_t stream) {
-  const int tc = (T + ns - 1) / ns;
-  const int G = Hq / Hkv;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(G) * D +
-                                       static_cast<size_t>(G) * tc);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv, ns, B);
-  decode_attention_kernel<KV><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const KV*>(k), static_cast<const KV*>(v), lengths, T, Hq,
-      Hkv, D, ns, tc, scale, o, m, l);
-  return cudaGetLastError();
+cudaError_t dispatch_g(const Args& a, int B, int design, cudaStream_t s) {
+  const int G = a.Hq / a.Hkv;
+  if (G <= 1) return launch<KV, 1>(a, B, design, s);
+  if (G <= 2) return launch<KV, 2>(a, B, design, s);
+  if (G <= 4) return launch<KV, 4>(a, B, design, s);
+  return launch<KV, 8>(a, B, design, s);
 }
 
 }  // namespace
 
-// kv_dtype: 0 = f32, 2 = bf16; scale = D^-0.5 rounded to f32 by the caller,
-// as the reference multiplies by it. Returns a cudaError_t.
+// q, k, v, lengths and o contiguous and 16-byte aligned; kv_dtype: 0 = f32,
+// 2 = bf16; D a multiple of 8 up to 128; G = Hq / Hkv up to 8; scale =
+// D^-0.5 rounded to f32 by the caller, as the reference multiplies by it;
+// design 0 = one block per (kv head, row), 1 = a cluster of ns blocks
+// (ns <= 16). o is (B, Hq, D) f32. Returns a cudaError_t.
 extern "C" int decode_attention(const float* q, const void* k, const void* v,
                                 const int* lengths, int kv_dtype, int B,
                                 int T, int Hq, int Hkv, int D, int ns,
-                                float scale, float* o, float* m, float* l,
+                                float scale, int design, float* o,
                                 void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || ns <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || B > 65535 || T <= 0 || Hkv <= 0 || Hkv > 65535 ||
+      Hq % Hkv != 0 || Hq / Hkv > 8 || D <= 0 || D > 128 || D % 8 != 0 ||
+      ns <= 0 || (design != 0 && design != 1))
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, lengths, o, T, Hq, Hkv, D, ns, (T + ns - 1) / ns,
+               scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 0)
-    return launch<float>(q, k, v, lengths, B, T, Hq, Hkv, D, ns, scale, o, m,
-                         l, s);
-  if (kv_dtype == 2)
-    return launch<__nv_bfloat16>(q, k, v, lengths, B, T, Hq, Hkv, D, ns, scale,
-                                 o, m, l, s);
+  if (kv_dtype == 0) return dispatch_g<float>(a, B, design, s);
+  if (kv_dtype == 2) return dispatch_g<__nv_bfloat16>(a, B, design, s);
   return cudaErrorInvalidValue;
 }

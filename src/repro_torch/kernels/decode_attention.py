@@ -2,9 +2,10 @@
 grouped-query attention).
 
 The CUDA kernel (``csrc/decode_attention.cu``) replaces the JAX package's
-``kernels/decode_attention.py:decode_attention_pallas`` and emits per-split
-partials (o, m, l); ``combine_splits`` is the max-rescale merge, plain
-torch as in the reference.
+``kernels/decode_attention.py:decode_attention_pallas`` together with its
+``combine_splits``: one launch computes the per-split partials (o, m, l)
+and their max-rescale merge, and returns what ``ops.decode_attention``
+returns, (B, Hq, D) f32.
 
 Two plain versions sit beside it:
 
@@ -13,9 +14,10 @@ Two plain versions sit beside it:
   softmax, probabilities rounded to the cache dtype before P.V. It is the
   CPU path of ``ops.decode_attention``, so greedy tokens can match the
   reference engine on CPU.
-* ``decode_partials_plain`` — the kernel's own split arithmetic in torch
-  (the counterpart of the Pallas ``_decode_kernel``): what the kernel's
-  partials are held against, and what shows ``n_splits`` invariance on CPU.
+* ``combine_splits(*decode_partials_plain(...))`` — the kernel's own split
+  arithmetic in torch (the counterpart of the Pallas ``_decode_kernel``
+  and ``combine_splits``): what the kernel is held against, and what shows
+  ``n_splits`` invariance on CPU.
 
 With a bf16 cache the two differ by bf16 rounding of p: the naive math
 rounds the normalised probability, the split math the unnormalised
@@ -29,12 +31,12 @@ import ctypes
 import torch
 
 NEG = -1e30
+MAX_HEAD_DIM = 128
+MAX_GROUP = 8            # query heads per kv head
+MAX_CLUSTER = 16         # blocks (splits) of one thread block cluster
 
-ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 
 
@@ -88,10 +90,17 @@ def combine_splits(o, m, l):
     return o_g / torch.clamp(l_g, min=1e-30)[..., None]
 
 
-def decode_partials_cuda(lib, q, k, v, lengths, n_splits: int):
+def decode_attention_cuda(lib, q, k, v, lengths, n_splits: int,
+                          design: int | None = None):
     """Launch the kernel on ``q``'s current stream; same result as
-    ``decode_partials_plain``."""
-    if not all(t.is_cuda and t.device == q.device for t in (q, k, v, lengths)):
+    ``combine_splits(*decode_partials_plain(q, k, v, lengths, n_splits))``.
+    Design 1 gives each split a block of four warps and forms a thread
+    block cluster of the ``n_splits`` blocks of each (kv head, row); a
+    cluster holds at most 16 blocks, so more splits take design 0, one
+    block per (kv head, row) with one warp per split. ``design`` forces one
+    of the two (the tests and chip_smoke.py time and check both)."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device
+            and lengths.device == q.device):
         raise ValueError("decode_attention kernel: inputs must be on one CUDA "
                          "device")
     if q.dtype != torch.float32 or k.dtype != v.dtype or \
@@ -103,24 +112,40 @@ def decode_partials_cuda(lib, q, k, v, lengths, n_splits: int):
     if k.shape != (B, T, Hkv, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"decode_attention kernel: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if D % 8 or D > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention kernel: head dim {D} (a multiple "
+                         f"of 8 up to {MAX_HEAD_DIM}) or group {Hq // Hkv} "
+                         f"(up to {MAX_GROUP})")
     if lengths.shape != (B,) or n_splits < 1:
         raise ValueError("decode_attention kernel: lengths (B,), n_splits >= 1")
-    tc = -(-T // n_splits)
-    if 4 * (Hq // Hkv) * (D + tc) > 227 * 1024:
-        raise ValueError("decode_attention kernel: split too long for shared "
-                         "memory; raise n_splits")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    o = torch.empty((B, n_splits, Hq, D), dtype=torch.float32,
-                    device=q.device)
-    m = torch.empty((B, n_splits, Hq), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    if design is None:
+        design = 1 if n_splits <= MAX_CLUSTER else 0
+    if design not in (0, 1) or (design and n_splits > MAX_CLUSTER):
+        raise ValueError(f"decode_attention kernel: design {design} with "
+                         f"{n_splits} splits")
+    G, tc = Hq // Hkv, -(-T // n_splits)
+    smem = G * D + 2 * G * tc * (1 if design else min(n_splits, 8)) + \
+        ((2 * G + 5 * G * D) if design else n_splits * (2 * G + G * D))
+    if 4 * smem > 227 * 1024:
+        raise ValueError("decode_attention kernel: splits too long or too "
+                         "many for shared memory")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    if lengths.dtype != torch.int32 or lengths.stride(0) != 1:
+        lengths = lengths.to(torch.int32).contiguous()
+    o = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     err = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        _KV_DTYPES[k.dtype], B, T, Hq, Hkv, D, n_splits, D ** -0.5,
-        o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _KV_DTYPES[k.dtype], B, T, Hq, Hkv, D, n_splits, D ** -0.5, design,
+        o.data_ptr(), torch._C._cuda_getCurrentRawStream(q.device.index))
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return o, m, l
+    return o
+
+
+def _aligned(t):
+    """``t`` itself when it is contiguous and 16-byte aligned (the kernel
+    reads 16 bytes per lane), else a contiguous copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

@@ -14,9 +14,10 @@ same call sites (``models/layers.py:gqa_scores_softmax_out`` with the
 causal mask at offset 0): f32 scores, f32 softmax, probabilities cast to
 v's dtype before P.V. It is the CPU path of ``ops.flash_attention`` and
 what the kernel is held against on the card. With f32 inputs the two agree
-to summation order; with bf16 inputs the plain version rounds the scores
-to bf16 (the einsum's output dtype) and the normalised probability, the
-kernel neither the scores and only the unnormalised ``exp(s - m)``.
+to summation order and the kernel's 3xTF32 products (about 2^-21 relative
+each); with bf16 inputs the plain version rounds the scores to bf16 (the
+einsum's output dtype) and the normalised probability, the kernel neither
+the scores and only the unnormalised ``exp(s - m)``.
 """
 from __future__ import annotations
 
@@ -70,14 +71,30 @@ def flash_attention_cuda(lib, q, k, v, causal: bool = True):
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel: head dim {D} not in "
                          f"[1, {MAX_HEAD_DIM}]")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    o = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    Dp = -(-D // 8) * 8
+    if Dp != D:
+        # the kernel takes D in steps of 8: zero columns leave every score
+        # and the first D output columns as they are
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    o = torch.empty((B, S, Hq, Dp), dtype=q.dtype, device=q.device)
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPES[q.dtype], B, S, T, Hq, Hkv, D, int(bool(causal)), D ** -0.5,
+        _DTYPES[q.dtype], B, S, T, Hq, Hkv, Dp, int(bool(causal)), D ** -0.5,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(q.device.index))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return o
+    return o if Dp == D else o[..., :D]
+
+
+def _aligned(t):
+    """``t`` itself when the kernel can read it in 16-byte pieces (unit
+    innermost stride, the other strides and the pointer multiples of 16
+    bytes), else a contiguous copy."""
+    es = t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
+            all(st * es % 16 == 0 for st in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

@@ -217,10 +217,10 @@ def decode_attention(q, k, v, lengths, n_splits: int = 8):
     """q: (B,Hq,D) f32; k,v: (B,T,Hkv,D) f32/bf16; lengths (B,) ->
     (B,Hq,D) f32 attending [0, lengths[b]] inclusive."""
     if _on_cuda(q, k, v, lengths):
-        o, m, l = _da.decode_partials_cuda(_lib("decode_attention"), q, k, v,
-                                           lengths, int(n_splits))
+        o = _da.decode_attention_cuda(_lib("decode_attention"), q, k, v,
+                                      lengths, int(n_splits))
         _count(decode_attention)
-        return _da.combine_splits(o, m, l)
+        return o
     return _da.decode_attention_plain(q, k, v, lengths)
 
 

@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.core.store import quantize_rows
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import (decode_attention_plain,
+from repro_torch.kernels.decode_attention import (combine_splits,
+                                                  decode_attention_cuda,
+                                                  decode_attention_plain,
                                                   decode_partials_plain)
 from repro_torch.kernels.flash_attention import flash_attention_plain
 
@@ -41,6 +43,10 @@ FLASH_SHAPES = [
     (1, 13, 13, 16, 8, 128, True),      # a short prompt
     (3, 100, 100, 12, 4, 128, True),    # ragged tiles, G = 3
     (2, 70, 130, 6, 2, 96, False),      # S != T, D not a power of two
+    (1, 46, 46, 16, 8, 128, True),      # a real prompt's length
+    (1, 37, 37, 16, 8, 128, True),      # S not a multiple of 16
+    (3, 23, 29, 4, 2, 64, False),       # S, T not multiples of 16
+    (1, 21, 21, 4, 2, 100, True),       # D not a multiple of 8
 ]
 
 
@@ -107,19 +113,83 @@ def test_gpu_mips_topk_int8_kernel_bit_for_bit(cuda, Q, N, D, k, tile):
                                                                128, 8)])
 def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
                                                    Hkv, D, ns):
-    from repro_torch.kernels.decode_attention import decode_partials_cuda
+    """The one launch ops.decode_attention makes (splits and their merge)
+    against the plain split version and the naive math, and the in-block
+    design against the same."""
     q, k, v, lengths = (_t(a).to(cuda) for a in
                         _decode_inputs(B, T, Hq, Hkv, D, T + Hq))
     k, v = k.to(kv_dtype), v.to(kv_dtype)
-    o, m, l = decode_partials_cuda(ops._lib("decode_attention"), q, k, v,
-                                   lengths, ns)
-    op, mp, lp = decode_partials_plain(q, k, v, lengths, ns)
-    tol = 2e-4 if kv_dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(m, mp, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(l, lp, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(o, op, rtol=tol, atol=tol)
+    n0 = ops.decode_attention.launches
     got = ops.decode_attention(q, k, v, lengths, ns)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, D)
+    tol = 2e-4 if kv_dtype == torch.float32 else 1e-2
+    split = combine_splits(*decode_partials_plain(q, k, v, lengths, ns))
+    torch.testing.assert_close(got, split, rtol=tol, atol=tol)
     torch.testing.assert_close(got, decode_attention_plain(q, k, v, lengths),
+                               rtol=tol, atol=tol)
+    blk = decode_attention_cuda(ops._lib("decode_attention"), q, k, v,
+                                lengths, ns, design=0)
+    torch.testing.assert_close(blk, split, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", [0, 1])
+def test_gpu_decode_attention_split_invariance(cuda, design):
+    """f32 cache: the same output for n_splits 1, 3, 8 and 16 within 1e-5."""
+    q, k, v, _ = (_t(a).to(cuda) for a in
+                  _decode_inputs(4, 160, 16, 8, 128, 7))
+    lengths = torch.tensor([45, 0, 159, 100], dtype=torch.int32, device=cuda)
+    lib = ops._lib("decode_attention")
+    outs = [decode_attention_cuda(lib, q, k, v, lengths, ns, design)
+            for ns in (1, 3, 8, 16)]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[0], decode_attention_plain(q, k, v,
+                                                               lengths),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_decode_attention_more_splits_than_a_cluster_holds(cuda):
+    """n_splits above 16 take the in-block design through the same call."""
+    q, k, v, lengths = (_t(a).to(cuda) for a in
+                        _decode_inputs(3, 160, 8, 2, 64, 5))
+    got = ops.decode_attention(q, k, v, lengths, 20)
+    torch.testing.assert_close(
+        got, combine_splits(*decode_partials_plain(q, k, v, lengths, 20)),
+        rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="design"):
+        decode_attention_cuda(ops._lib("decode_attention"), q, k, v, lengths,
+                              20, design=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [(0, 0, 0, 0), (1, 1, 1, 1),
+                                  (159, 159, 159, 159), (0, 1, 77, 159),
+                                  (46, 51, 62, 3)])
+def test_gpu_decode_attention_reads_nothing_past_the_length(cuda, kv_dtype,
+                                                            lens):
+    """Whole splits past the length, and ragged lengths across rows: every
+    k and v row past lengths[b] is NaN, which any read that reached the
+    output would carry into it."""
+    q, k, v, _ = (_t(a).to(cuda) for a in
+                  _decode_inputs(4, 160, 16, 8, 128, sum(lens)))
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    past = torch.arange(160, device=cuda)[None, :] > lengths[:, None]
+    kn, vn = k.clone(), v.clone()
+    kn[past], vn[past] = float("nan"), float("nan")
+    tol = 2e-4 if kv_dtype == torch.float32 else 1e-2
+    want = combine_splits(*decode_partials_plain(q, k, v, lengths, 8))
+    lib = ops._lib("decode_attention")
+    for design in (0, 1):
+        got = decode_attention_cuda(lib, q, kn, vn, lengths, 8, design)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(ops.decode_attention(q, kn, vn, lengths, 8),
+                               decode_attention_plain(q, k, v, lengths),
                                rtol=tol, atol=tol)
 
 
@@ -179,6 +249,16 @@ def test_gpu_kernel_launch_refuses_bad_inputs(cuda):
         ops.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError):                   # Hq % Hkv != 0
         ops.flash_attention(torch.zeros((1, 4, 3, 16), device=cuda), qa, qa)
+    qd = torch.zeros((1, 16, 12), device=cuda)
+    kd = torch.zeros((1, 8, 8, 12), device=cuda)
+    lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # D % 8 != 0
+        ops.decode_attention(qd, kd, kd, lens)
+    with pytest.raises(ValueError):                   # mixed devices
+        ops.decode_attention(qd, kd.cpu(), kd, lens)
+    with pytest.raises(TypeError):                    # fp16 cache
+        ops.decode_attention(qd[..., :8], kd[..., :8].half(),
+                             kd[..., :8].half(), lens)
 
 
 @pytest.mark.gpu

@@ -186,6 +186,33 @@ def test_decode_attention_split_invariance():
     np.testing.assert_allclose(o1.numpy(), o3.numpy(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,ns,lens", [
+    (3, 64, 4, 2, 16, 8, (0, 1, 63)),
+    (2, 100, 8, 4, 32, 16, (5, 40)),
+    (4, 33, 6, 2, 8, 3, (0, 10, 11, 32)),
+    (1, 160, 4, 2, 64, 8, (46,)),
+])
+def test_decode_split_plain_matches_jax_with_splits_past_the_length(
+        dtype, B, T, Hq, Hkv, D, ns, lens):
+    """The plain version the fused kernel is held to on the card, split
+    partials then combine_splits, against the JAX reference's
+    ops.decode_attention (Pallas in interpret mode), with whole splits
+    past the length; B3's contract, 2e-4 (f32 cache) and 1e-2 (bf16)."""
+    q, k, v, _ = _decode_inputs(B, T, Hq, Hkv, D, T + ns)
+    lengths = np.asarray(lens, np.int32)
+    kj, vj = (jnp.asarray(a).astype(dtype) for a in (k, v))
+    want = jops.decode_attention(jnp.asarray(q), kj, vj, jnp.asarray(lengths),
+                                 ns)
+    td = getattr(torch, dtype)
+    kt, vt = (_t(np.asarray(a.astype(jnp.float32))).to(td) for a in (kj, vj))
+    got = combine_splits(*decode_partials_plain(_t(q), kt, vt, _t(lengths),
+                                                ns))
+    tol = 2e-4 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
 def _jax_naive_decode(q, kc, vc, cache_len):
     """models/model.py:gqa_decode's attention lines (313-319), verbatim."""
     B, Hq, hd = q.shape
@@ -303,3 +330,59 @@ def test_flash_attention_cpu_takes_the_plain_version_uncounted():
     assert torch.equal(o, flash_attention_plain(q, k, v, False))
     with pytest.raises(ValueError):
         ops.flash_attention(q, k.to("meta"), v)
+
+
+# ---------------------------------------------------------------------------
+# B4 on the tensor cores: the 3xTF32 split, emulated
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    on the bit pattern, as cvt.rna.tf32.f32 does."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b as the tensor cores form it from TF32 operands: products exact
+    in f32, sums in f32; 3 passes are the big/small split."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", [
+    (2, 64, 6, 6, 64, False),       # the MiniLM encoder's shape, cut in B
+    (1, 160, 16, 8, 64, True),
+    (2, 64, 6, 6, 128, False),
+    (1, 160, 16, 8, 128, True),     # qwen3-1.7b prefill at max_len
+])
+def test_flash_tf32_split_emulation_settles_the_f32_contract(
+        passes, B, S, Hq, Hkv, D, causal):
+    """B4's f32 arithmetic on the tensor cores, emulated in torch: both
+    products (Q.K^T and P.V) from TF32 operands, softmax in f32. With unit
+    scale inputs the 3xTF32 split holds the f32 contract, 2e-4 against the
+    plain version in f64; one TF32 pass does not, which is why the kernel
+    splits."""
+    rng = np.random.default_rng(D + S)
+    q, k, v = (_t(rng.normal(size=sh).astype(np.float32)) for sh in
+               ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    G = Hq // Hkv
+    qh = q.transpose(1, 2)
+    kh, vh = (t.transpose(1, 2).repeat_interleave(G, 1) for t in (k, v))
+    s = _tf32_matmul(qh, kh.transpose(-1, -2), passes) * D ** -0.5
+    if causal:
+        s = s.masked_fill(torch.arange(S)[None, :] > torch.arange(S)[:, None],
+                          -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = (_tf32_matmul(p, vh, passes) / p.sum(-1, keepdim=True)).transpose(1, 2)
+    want = flash_attention_plain(q.double(), k.double(), v.double(), causal)
+    err = float((o.double() - want).abs().max())
+    if passes == 3:
+        assert err <= 2e-4, err
+    else:
+        assert err > 2e-4, err
