@@ -16,8 +16,7 @@ result line is printed only when every phase passed:
    the serving shapes plus ragged (and bf16) cases, timed from the
    profiler (median, min and max of three runs) and with CUDA events
    beside the plain version and a one-call PyTorch yardstick; B3 as
-   ``gqa_decode`` calls it (one launch: the splits and their merge), its
-   in-block design beside it;
+   ``gqa_decode`` calls it (one launch: the splits and their merge);
 4. slice, fp16 store — writes the paper's 150,000-pair store, opens it
    with ``StorInfer.open`` (flat index, qwen3-1.7b at full width, random
    weights from ``--seed``) and serves a mixed stream through
@@ -321,24 +320,20 @@ def phase_kernels(torch, np, args, dev, prompt_len):
 
     # -- B3 ------------------------------------------------------------------
     B, T, Hq, Hkv, Dh, ns = 4, 160, 16, 8, 128, 8
-    lib_da = ops._lib("decode_attention")
 
     def b3_case(T_, lengths, dt, ns_, tol, label):
         qq = torch.randn((B, Hq, Dh), generator=g, device=dev)
         kk = torch.randn((B, T_, Hkv, Dh), generator=g, device=dev).to(dt)
         vv = torch.randn((B, T_, Hkv, Dh), generator=g, device=dev).to(dt)
-        # the one launch gqa_decode makes (the splits and their merge), and
-        # the in-block design, against the plain split version and the
-        # naive math
+        # the one launch gqa_decode makes (the splits and their merge)
+        # against the plain split version and the naive math
         got = ops.decode_attention(qq, kk, vv, lengths, ns_)
-        blk = da.decode_attention_cuda(lib_da, qq, kk, vv, lengths, ns_, 0)
         split = da.combine_splits(*da.decode_partials_plain(
             qq, kk, vv, lengths, ns_))
         want = da.decode_attention_plain(qq, kk, vv, lengths)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         check(torch.allclose(got, split, rtol=tol, atol=tol)
-              and torch.allclose(blk, split, rtol=tol, atol=tol)
               and torch.allclose(got, want, rtol=tol, atol=tol),
               f"B3 {label}: differs from plain (max {e})")
         print(f"B3 {label}: ok max_abs_err={e:.3e} vs the naive math, "
@@ -357,9 +352,6 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     b3_case(157, rag, torch.float32, 3, TOL_DECODE_F32, "ragged T=157 f32")
     ms, call = timed(torch, lambda: ops.decode_attention(
         qq, kk, vv, main_len, ns), 200, None, "decode_attention_kernel")
-    inblock, inblock_call = timed(torch, lambda: da.decode_attention_cuda(
-        lib_da, qq, kk, vv, main_len, ns, 0), 200, None,
-        "decode_attention_inblock_kernel")
     plain, plain_call = timed(torch, lambda: da.combine_splits(
         *da.decode_partials_plain(qq, kk, vv, main_len, ns)), 50)
     pos = torch.arange(T, device=dev)
@@ -373,9 +365,7 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     b_ms, b_by = bound(nb(qq, main_len) + kv_bytes + B * Hq * Dh * 4,
                        4 * att * Hq * Dh, F32_FLOPS)
     print(f"B3 as gqa_decode calls it (ops.decode_attention, one launch): "
-          f"device {spread(ms)} ms, per call with host gaps {call:.4f} ms; "
-          f"in-block design {spread(inblock)} ms, per call "
-          f"{inblock_call:.4f} ms")
+          f"device {spread(ms)} ms, per call with host gaps {call:.4f} ms")
     rows.append(dict(name="decode_attention", route="cuda",
                      source="src/repro_torch/csrc/decode_attention.cu",
                      replaces="src/repro/kernels/decode_attention.py:47",

@@ -21,24 +21,23 @@
 // one round trip to memory cost.
 //
 // Design: each split gets a block of four warps, which share its rows, and
-// the ns blocks of a (kv head, row) form a thread block cluster: after a
-// cluster barrier each block merges a share of the outputs, reading its
-// peers' partials through distributed shared memory. The G query heads of
-// a kv head share each k and v row read. A lane reads 16 bytes (8 bf16 or
-// 4 f32); a row of D elements takes D / 8 (bf16) or D / 4 (f32) lanes, so a
-// warp reads 32 / that many rows at once and keeps a few row loads per lane
-// in flight. A split reads only the positions
-// [t0, min(t0 + tc, T, lengths[b] + 1)): no k or v row past the length,
-// and nothing at all when it lies wholly past it (its merge weight
+// the blocks of a (kv head, row) form a thread block cluster of
+// cs = min(ns, 16) blocks (16 is the largest cluster an H100 launches);
+// block r takes the splits r, r + cs, ... and keeps each one's partial in
+// its shared memory. After a cluster barrier each block merges a share of
+// the outputs, reading its peers' partials through distributed shared
+// memory. The G query heads of a kv head share each k and v row read, in
+// groups of at most 8 (the heads a lane keeps in registers); a larger G
+// gives each group of 8 clusters of its own, which read the rows again. A
+// lane reads 16 bytes (8 bf16 or 4 f32); a row of D elements takes D / 8
+// (bf16) or D / 4 (f32) lanes, so a warp reads 32 / that many rows at once
+// and keeps a few row loads per lane in flight. A split reads only the
+// positions [t0, min(t0 + tc, T, lengths[b] + 1)): no k or v row past the
+// length, and nothing at all when it lies wholly past it (its merge weight
 // exp(-1e30 - m_g) is exactly 0 in the reference, so it is left out). The
 // v rows are loaded together with the k rows, so one round trip to memory
 // serves both, and the shuffle sums of all rows and heads a lane holds are
-// sent side by side. A cluster holds at most 16 blocks; more splits take
-// the in-block design (design = 0): one block per (kv head, row) with one
-// warp per split (at most 8 warps; a warp takes splits w, w + 8, ...),
-// merging in its own shared memory. On the serving shapes the cluster
-// design measured faster at batch 1 and level at batch 4 (PERF.md);
-// chip_smoke.py times both on the same inputs.
+// sent side by side.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,11 +49,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxWarps = 8;     // warps (splits in flight), in-block design
-constexpr int kU = 10;           // row loads a lane keeps in flight there
-constexpr int kMaxCluster = 16;  // splits of the cluster design
-constexpr int kClusterWarps = 4; // warps sharing a split there
-constexpr int kClusterU = 4;     // row loads a lane keeps in flight there
+constexpr int kMaxCluster = 16;  // blocks of one cluster
+constexpr int kWarps = 4;        // warps sharing a split
+constexpr int kU = 4;            // row loads a lane keeps in flight
+constexpr int kMaxSmem = 227 * 1024;
 
 struct Args {
   const float* q;
@@ -90,14 +88,13 @@ __device__ __forceinline__ float round_like(float p) {
     return p;
 }
 
-// this lane's 16 bytes of rows j0 + u * step (u < KU) of a split; zero
+// this lane's 16 bytes of rows j0 + u * step (u < kU) of a split; zero
 // past its n attended rows
-template <int KU>
 __device__ __forceinline__ void load_rows(const char* p, int64_t row_bytes,
                                           int j0, int step, int n, bool on,
-                                          uint4 (&out)[KU]) {
+                                          uint4 (&out)[kU]) {
 #pragma unroll
-  for (int u = 0; u < KU; ++u) {
+  for (int u = 0; u < kU; ++u) {
     const int i = j0 + u * step;
     out[u] = make_uint4(0u, 0u, 0u, 0u);
     if (on && i < n)
@@ -105,61 +102,47 @@ __device__ __forceinline__ void load_rows(const char* p, int64_t row_bytes,
   }
 }
 
-template <int NWG>
-__device__ __forceinline__ void group_sync() {
-  if constexpr (NWG == 1)
-    __syncwarp();
-  else
-    __syncthreads();
-}
-
-// The NWG warps of a group (a block when NWG > 1) form one split's partial
-// [m (G)][l (G)][o (G x D)] of the attended positions [t0, t0 + n) for the
-// G query heads of kv head h in row b, into `part` (shared memory). Warp wg
-// of the group reads rows wg * rpw + r, then every NWG * rpw further ones.
-// qs holds the G query rows; sc and ps are the group's [G][tc] scores and
-// probabilities; red (NWG > 1) is [NWG][G][D] for the sum over warps. A
-// split with n <= 0 gets m = -inf and no o: the merge leaves it out.
-template <typename KV, int GM, int NWG, int KU>
+// The block's warps form one split's partial [m (G)][l (G)][o (G x D)] of
+// the n > 0 attended positions [t0, t0 + n) for the block's G <= GM query
+// heads of kv head h in row b, into `part` (shared memory). Warp wg reads
+// rows wg * rpw + r, then every kWarps * rpw further ones. qs holds the G query rows; sc and ps are the block's [G][tc] scores
+// and probabilities; red is [kWarps][G][D] for the sum over warps.
+template <typename KV, int GM>
 __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
-                                              int G, int t0, int n, int wg,
+                                              int G, int t0, int n,
                                               const float* qs, float* sc,
                                               float* ps, float* red,
                                               float* part) {
   constexpr int V = 16 / sizeof(KV);
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, wg = threadIdx.x / 32;
+  const int D = a.D, nch = D / V;
   float* pm = part;
   float* pl = part + G;
   float* po = part + 2 * G;
-  if (n <= 0) {
-    if (wg == 0 && lane < G) pm[lane] = -INFINITY;
-    return;
-  }
-  const int D = a.D, nch = D / V;
   int lpr = 1;  // lanes per row
   while (lpr < nch) lpr <<= 1;
   const int rpw = 32 / lpr, r = lane / lpr, c = lane % lpr;
   const bool on = c < nch;
-  const int first = wg * rpw + r, step = NWG * rpw;  // this lane's rows
+  const int first = wg * rpw + r, step = kWarps * rpw;  // this lane's rows
   const int64_t row_bytes = static_cast<int64_t>(a.Hkv) * D * sizeof(KV);
   const int64_t off =
       (static_cast<int64_t>(b) * a.T + t0) * row_bytes +
       (static_cast<int64_t>(h) * D + c * V) * sizeof(KV);
   const char* kb = static_cast<const char*>(a.k) + off;
   const char* vb = static_cast<const char*>(a.v) + off;
-  const int per = KU * step;  // rows of one batch
+  const int per = kU * step;  // rows of one batch
 
-  uint4 vr[KU];
-  load_rows<KU>(vb, row_bytes, first, step, n, on, vr);  // in flight with k
+  uint4 vr[kU];
+  load_rows(vb, row_bytes, first, step, n, on, vr);  // in flight with k
   for (int j0 = first; j0 - first < n; j0 += per) {
-    uint4 kr[KU];
-    load_rows<KU>(kb, row_bytes, j0, step, n, on, kr);
-    // every lane's share of the KU x G dot products first, then their
-    // sums over the lpr lanes of a row, all KU x G shuffles of a step
+    uint4 kr[kU];
+    load_rows(kb, row_bytes, j0, step, n, on, kr);
+    // every lane's share of the kU x G dot products first, then their
+    // sums over the lpr lanes of a row, all kU x GM shuffles of a step
     // independent of each other
-    float s[KU][GM];
+    float s[kU][GM];
 #pragma unroll
-    for (int u = 0; u < KU; ++u) {
+    for (int u = 0; u < kU; ++u) {
       float kf[V];
       unpack(kr[u], kf);
 #pragma unroll
@@ -174,23 +157,23 @@ __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
     }
     for (int o = lpr >> 1; o > 0; o >>= 1)
 #pragma unroll
-      for (int u = 0; u < KU; ++u)
+      for (int u = 0; u < kU; ++u)
 #pragma unroll
         for (int g = 0; g < GM; ++g)
           s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
 #pragma unroll
-    for (int u = 0; u < KU; ++u) {
+    for (int u = 0; u < kU; ++u) {
       const int i = j0 + u * step;
 #pragma unroll
       for (int g = 0; g < GM; ++g)
         if (g < G && c == 0 && i < n) sc[g * a.tc + i] = s[u][g] * a.scale;
     }
   }
-  group_sync<NWG>();
+  __syncthreads();
 
   // m, l and p (rounded like v) per query head, the G heads' reductions
-  // side by side; every warp of the group forms them over the whole split
-  // and writes the same p, so each reads back what it needs unsynchronised
+  // side by side; every warp forms them over the whole split and writes
+  // the same p, so each reads back what it needs unsynchronised
   float mx[GM], sum[GM];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
@@ -235,9 +218,9 @@ __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
   for (int j0 = first; j0 - first < n; j0 += per) {
-    if (j0 > first) load_rows<KU>(vb, row_bytes, j0, step, n, on, vr);
+    if (j0 > first) load_rows(vb, row_bytes, j0, step, n, on, vr);
 #pragma unroll
-    for (int u = 0; u < KU; ++u) {
+    for (int u = 0; u < kU; ++u) {
       const int i = j0 + u * step;
       if (i >= n) continue;
       float vf[V];
@@ -251,138 +234,112 @@ __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
       }
     }
   }
-  // sum over the rpw rows a warp reads at once, then over the group's warps
+  // sum over the rpw rows a warp reads at once, then over the warps
   for (int o = lpr; o < 32; o <<= 1)
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
       for (int e = 0; e < V; ++e)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-  float* dst = NWG == 1 ? po : red + wg * G * D;
   if (r == 0 && on) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
 #pragma unroll
-      for (int e = 0; e < V; ++e) dst[g * D + c * V + e] = acc[g][e];
+      for (int e = 0; e < V; ++e)
+        red[wg * G * D + g * D + c * V + e] = acc[g][e];
     }
   }
-  if constexpr (NWG > 1) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * D; i += NWG * 32) {
-      float t = 0.f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += kWarps * 32) {
+    float t = 0.f;
 #pragma unroll
-      for (int w = 0; w < NWG; ++w) t += red[w * G * D + i];
-      po[i] = t;
-    }
+    for (int w = 0; w < kWarps; ++w) t += red[w * G * D + i];
+    po[i] = t;
   }
 }
 
-// combine_splits for outputs i0, i0 + step, ... of the G x D block of
-// (row b, kv head h); part(s) points at split s's [m][l][o]
+// combine_splits for outputs i0, i0 + step, ... of the block's G x D
+// outputs ob; part(r, j) points at the [m][l][o] of split j * cs + r,
+// which cluster block r keeps in its slot j
 template <typename Part>
-__device__ __forceinline__ void merge(const Args& a, int b, int h, int G,
-                                      int i0, int step, Part part) {
-  float* ob = a.o + (static_cast<int64_t>(b) * a.Hq + h * G) * a.D;
+__device__ __forceinline__ void merge(const Args& a, float* ob, int G,
+                                      int cs, int i0, int step, Part part) {
   for (int i = i0; i < G * a.D; i += step) {
     const int g = i / a.D;
     float mg = -INFINITY;
-    for (int s = 0; s < a.ns; ++s) mg = fmaxf(mg, part(s)[g]);
+    for (int j = 0, s0 = 0; s0 < a.ns; ++j, s0 += cs)
+      for (int r = 0; r < cs && s0 + r < a.ns; ++r)
+        mg = fmaxf(mg, part(r, j)[g]);
     float L = 0.f, O = 0.f;
-    for (int s = 0; s < a.ns; ++s) {
-      const float* ps = part(s);
-      const float m = ps[g];
-      if (m == -INFINITY) continue;  // no attended position in split s
-      const float w = expf(m - mg);
-      L = fmaf(ps[G + g], w, L);
-      O = fmaf(ps[2 * G + i], w, O);
-    }
+    for (int j = 0, s0 = 0; s0 < a.ns; ++j, s0 += cs)
+      for (int r = 0; r < cs && s0 + r < a.ns; ++r) {
+        const float* ps = part(r, j);
+        const float m = ps[g];
+        if (m == -INFINITY) continue;  // no attended position in the split
+        const float w = expf(m - mg);
+        L = fmaf(ps[G + g], w, L);
+        O = fmaf(ps[2 * G + i], w, O);
+      }
     ob[i] = O / fmaxf(L, 1e-30f);
   }
 }
 
-__device__ __forceinline__ void load_q(const Args& a, int b, int h, int G,
-                                       float* qs) {
-  const float4* qb = reinterpret_cast<const float4*>(
-      a.q + (static_cast<int64_t>(b) * a.Hq + h * G) * a.D);
-  for (int e = threadIdx.x; e < G * a.D / 4; e += blockDim.x)
-    reinterpret_cast<float4*>(qs)[e] = qb[e];
+// splits a block of a cluster of cs keeps: ceil(ns / cs)
+__host__ __device__ __forceinline__ int splits_per_block(int ns, int cs) {
+  return (ns + cs - 1) / cs;
 }
 
-// in-block design: grid (Hkv, B), min(ns, kMaxWarps) warps, one per split
+// grid (cs, Hkv * ng, B) for ng = ceil(Hq / Hkv / GM) groups of at most
+// GM query heads per kv head, kWarps warps per block, the cs blocks of a
+// (kv head, head group, row) one cluster; shared memory, for the block's G
+// heads: [G][D] q, [ns / cs][2G + G D] partials, [2][G][tc] scores and
+// probabilities, [kWarps][G][D] warp sums
 template <typename KV, int GM>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-decode_attention_inblock_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [G][D]
-  const int G = a.Hq / a.Hkv, h = blockIdx.x, b = blockIdx.y;
-  const int nw = blockDim.x / 32, warp = threadIdx.x / 32;
-  const int psz = 2 * G + G * a.D;               // one split's partial
-  float* parts = qs + G * a.D;                   // [ns][psz]
-  float* sc = parts + a.ns * psz + 2 * warp * G * a.tc;  // [2][G][tc]
-  const int last = min(a.lengths[b], a.T - 1);   // last attended position
-  load_q(a, b, h, G, qs);
-  __syncthreads();
-  for (int sp = warp; sp < a.ns; sp += nw) {
-    const int t0 = sp * a.tc;
-    const int n = min(min(a.tc, a.T - t0), last + 1 - t0);
-    split_partial<KV, GM, 1, kU>(a, b, h, G, t0, n, 0, qs, sc,
-                                 sc + G * a.tc, nullptr, parts + sp * psz);
-  }
-  __syncthreads();
-  merge(a, b, h, G, threadIdx.x, blockDim.x,
-        [&](int s) -> const float* { return parts + s * psz; });
-}
-
-// cluster design: grid (ns, Hkv, B), kClusterWarps warps per block sharing
-// one split, the ns blocks of a (kv head, row) one cluster
-template <typename KV, int GM>
-__global__ void __launch_bounds__(32 * kClusterWarps)
+__global__ void __launch_bounds__(32 * kWarps)
 decode_attention_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  const int G = a.Hq / a.Hkv, sp = blockIdx.x, h = blockIdx.y,
-            b = blockIdx.z;
-  float* part = qs + G * a.D;
-  float* sc = part + 2 * G + G * a.D;
-  float* red = sc + 2 * G * a.tc;
   cg::cluster_group cl = cg::this_cluster();
-  const int last = min(a.lengths[b], a.T - 1);
-  load_q(a, b, h, G, qs);
+  const int Gkv = a.Hq / a.Hkv, ng = (Gkv + GM - 1) / GM;
+  const int h = blockIdx.y / ng, g0 = blockIdx.y % ng * GM, b = blockIdx.z;
+  const int G = min(GM, Gkv - g0);  // this block's query heads
+  const int cs = gridDim.x;  // the cluster spans the grid's x
+  const int rank = static_cast<int>(cl.block_rank());
+  const int psz = 2 * G + G * a.D;  // one split's partial
+  float* parts = qs + G * a.D;
+  float* sc = parts + splits_per_block(a.ns, cs) * psz;
+  float* red = sc + 2 * G * a.tc;
+  const int last = min(a.lengths[b], a.T - 1);  // last attended position
+  const int64_t row0 = (static_cast<int64_t>(b) * a.Hq + h * Gkv + g0) * a.D;
+  const float4* qb = reinterpret_cast<const float4*>(a.q + row0);
+  for (int e = threadIdx.x; e < G * a.D / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(qs)[e] = qb[e];
   __syncthreads();
-  const int t0 = sp * a.tc;
-  const int n = min(min(a.tc, a.T - t0), last + 1 - t0);
-  split_partial<KV, GM, kClusterWarps, kClusterU>(
-      a, b, h, G, t0, n, threadIdx.x / 32, qs, sc, sc + G * a.tc, red, part);
+#pragma unroll 1
+  for (int sp = rank, j = 0; sp < a.ns; sp += cs, ++j) {
+    const int t0 = sp * a.tc;
+    const int n = min(min(a.tc, a.T - t0), last + 1 - t0);
+    float* part = parts + j * psz;
+    if (n <= 0) {  // m = -inf and no o: the merge leaves the split out
+      for (int g = threadIdx.x; g < G; g += blockDim.x) part[g] = -INFINITY;
+      continue;
+    }
+    split_partial<KV, GM>(a, b, h, G, t0, n, qs, sc, sc + G * a.tc, red,
+                          part);
+  }
   cl.sync();  // every partial written
-  merge(a, b, h, G, static_cast<int>(cl.block_rank()) * blockDim.x +
-                        threadIdx.x,
-        a.ns * blockDim.x, [&](int s) -> const float* {
-          return cl.map_shared_rank(part, static_cast<unsigned>(s));
+  merge(a, a.o + row0, G, cs, rank * blockDim.x + threadIdx.x,
+        cs * blockDim.x, [&](int r, int j) -> const float* {
+          return cl.map_shared_rank(parts + j * psz,
+                                    static_cast<unsigned>(r));
         });
   cl.sync();  // peers' shared memory stays until every block has read it
 }
 
-constexpr int kMaxSmem = 227 * 1024;
-
 template <typename KV, int GM>
-cudaError_t launch(const Args& a, int B, int design, cudaStream_t stream) {
-  const int G = a.Hq / a.Hkv;
-  if (design == 0) {
-    // the attribute once per instantiation, not per launch
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        decode_attention_inblock_kernel<KV, GM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (attr != cudaSuccess) return attr;
-    const int nw = a.ns < kMaxWarps ? a.ns : kMaxWarps;
-    const size_t smem = sizeof(float) *
-        (static_cast<size_t>(G) * a.D + static_cast<size_t>(a.ns) *
-         (2 * G + G * a.D) + static_cast<size_t>(nw) * 2 * G * a.tc);
-    if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    decode_attention_inblock_kernel<KV, GM><<<dim3(a.Hkv, B), 32 * nw, smem,
-                                      stream>>>(a);
-    return cudaGetLastError();
-  }
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  // the attributes once per instantiation, not per launch
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
         decode_attention_kernel<KV, GM>,
@@ -393,20 +350,24 @@ cudaError_t launch(const Args& a, int B, int design, cudaStream_t stream) {
                                 1);
   }();
   if (attr != cudaSuccess) return attr;
-  if (a.ns > kMaxCluster) return cudaErrorInvalidValue;
+  const int Gkv = a.Hq / a.Hkv, ng = (Gkv + GM - 1) / GM;
+  const int G = Gkv < GM ? Gkv : GM;  // query heads of the largest block
+  const int cs = a.ns < kMaxCluster ? a.ns : kMaxCluster;
   const size_t smem = sizeof(float) *
-      (static_cast<size_t>(G) * a.D + 2 * G + static_cast<size_t>(G) * a.D +
+      (static_cast<size_t>(G) * a.D +
+       static_cast<size_t>(splits_per_block(a.ns, cs)) * (2 * G + G * a.D) +
        static_cast<size_t>(2) * G * a.tc +
-       static_cast<size_t>(kClusterWarps) * G * a.D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+       static_cast<size_t>(kWarps) * G * a.D);
+  if (smem > kMaxSmem || static_cast<int64_t>(a.Hkv) * ng > 65535)
+    return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.ns, a.Hkv, B);
-  cfg.blockDim = dim3(32 * kClusterWarps);
+  cfg.gridDim = dim3(cs, a.Hkv * ng, B);
+  cfg.blockDim = dim3(32 * kWarps);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attrs[1];
   attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = a.ns;
+  attrs[0].val.clusterDim.x = cs;
   attrs[0].val.clusterDim.y = 1;
   attrs[0].val.clusterDim.z = 1;
   cfg.attrs = attrs;
@@ -416,35 +377,35 @@ cudaError_t launch(const Args& a, int B, int design, cudaStream_t stream) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// GM: the query heads a lane keeps in registers; a G above 8 takes groups
+// of 8 in blocks of their own
 template <typename KV>
-cudaError_t dispatch_g(const Args& a, int B, int design, cudaStream_t s) {
+cudaError_t dispatch_g(const Args& a, int B, cudaStream_t s) {
   const int G = a.Hq / a.Hkv;
-  if (G <= 1) return launch<KV, 1>(a, B, design, s);
-  if (G <= 2) return launch<KV, 2>(a, B, design, s);
-  if (G <= 4) return launch<KV, 4>(a, B, design, s);
-  return launch<KV, 8>(a, B, design, s);
+  if (G <= 1) return launch<KV, 1>(a, B, s);
+  if (G <= 2) return launch<KV, 2>(a, B, s);
+  if (G <= 4) return launch<KV, 4>(a, B, s);
+  return launch<KV, 8>(a, B, s);
 }
 
 }  // namespace
 
 // q, k, v, lengths and o contiguous and 16-byte aligned; kv_dtype: 0 = f32,
-// 2 = bf16; D a multiple of 8 up to 128; G = Hq / Hkv up to 8; scale =
-// D^-0.5 rounded to f32 by the caller, as the reference multiplies by it;
-// design 0 = one block per (kv head, row), 1 = a cluster of ns blocks
-// (ns <= 16). o is (B, Hq, D) f32. Returns a cudaError_t.
+// 2 = bf16; D a multiple of 8 up to 128; scale = D^-0.5 rounded to f32 by
+// the caller, as the reference multiplies by it. o is (B, Hq, D) f32.
+// Returns a cudaError_t: cudaErrorInvalidValue also when the shapes need
+// more shared memory than a block has (a long split: raise ns).
 extern "C" int decode_attention(const float* q, const void* k, const void* v,
                                 const int* lengths, int kv_dtype, int B,
                                 int T, int Hq, int Hkv, int D, int ns,
-                                float scale, int design, float* o,
-                                void* stream) {
+                                float scale, float* o, void* stream) {
   if (B <= 0 || B > 65535 || T <= 0 || Hkv <= 0 || Hkv > 65535 ||
-      Hq % Hkv != 0 || Hq / Hkv > 8 || D <= 0 || D > 128 || D % 8 != 0 ||
-      ns <= 0 || (design != 0 && design != 1))
+      Hq % Hkv != 0 || D <= 0 || D > 128 || D % 8 != 0 || ns <= 0)
     return cudaErrorInvalidValue;
   const Args a{q, k, v, lengths, o, T, Hq, Hkv, D, ns, (T + ns - 1) / ns,
                scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 0) return dispatch_g<float>(a, B, design, s);
-  if (kv_dtype == 2) return dispatch_g<__nv_bfloat16>(a, B, design, s);
+  if (kv_dtype == 0) return dispatch_g<float>(a, B, s);
+  if (kv_dtype == 2) return dispatch_g<__nv_bfloat16>(a, B, s);
   return cudaErrorInvalidValue;
 }

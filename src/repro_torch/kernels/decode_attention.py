@@ -30,13 +30,13 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.flash_attention import aligned16
+
 NEG = -1e30
 MAX_HEAD_DIM = 128
-MAX_GROUP = 8            # query heads per kv head
-MAX_CLUSTER = 16         # blocks (splits) of one thread block cluster
 
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 2)
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 
 
@@ -90,15 +90,11 @@ def combine_splits(o, m, l):
     return o_g / torch.clamp(l_g, min=1e-30)[..., None]
 
 
-def decode_attention_cuda(lib, q, k, v, lengths, n_splits: int,
-                          design: int | None = None):
+def decode_attention_cuda(lib, q, k, v, lengths, n_splits: int):
     """Launch the kernel on ``q``'s current stream; same result as
     ``combine_splits(*decode_partials_plain(q, k, v, lengths, n_splits))``.
-    Design 1 gives each split a block of four warps and forms a thread
-    block cluster of the ``n_splits`` blocks of each (kv head, row); a
-    cluster holds at most 16 blocks, so more splits take design 0, one
-    block per (kv head, row) with one warp per split. ``design`` forces one
-    of the two (the tests and chip_smoke.py time and check both)."""
+    Each split is a block, and the blocks of a (kv head, row) form a thread
+    block cluster of ``min(n_splits, 16)`` blocks that merges the splits."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and lengths.device == q.device):
         raise ValueError("decode_attention kernel: inputs must be on one CUDA "
@@ -112,40 +108,29 @@ def decode_attention_cuda(lib, q, k, v, lengths, n_splits: int,
     if k.shape != (B, T, Hkv, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"decode_attention kernel: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if D % 8 or D > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention kernel: head dim {D} (a multiple "
-                         f"of 8 up to {MAX_HEAD_DIM}) or group {Hq // Hkv} "
-                         f"(up to {MAX_GROUP})")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention kernel: head dim {D} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
     if lengths.shape != (B,) or n_splits < 1:
         raise ValueError("decode_attention kernel: lengths (B,), n_splits >= 1")
-    if design is None:
-        design = 1 if n_splits <= MAX_CLUSTER else 0
-    if design not in (0, 1) or (design and n_splits > MAX_CLUSTER):
-        raise ValueError(f"decode_attention kernel: design {design} with "
-                         f"{n_splits} splits")
-    G, tc = Hq // Hkv, -(-T // n_splits)
-    smem = G * D + 2 * G * tc * (1 if design else min(n_splits, 8)) + \
-        ((2 * G + 5 * G * D) if design else n_splits * (2 * G + G * D))
-    if 4 * smem > 227 * 1024:
-        raise ValueError("decode_attention kernel: splits too long or too "
-                         "many for shared memory")
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    Dp = -(-D // 8) * 8
+    if Dp != D:
+        # the kernel takes D in steps of 8: zero columns leave every score
+        # and the first D output columns as they are
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
+    q, k, v = (aligned16(t, contiguous=True) for t in (q, k, v))
     if lengths.dtype != torch.int32 or lengths.stride(0) != 1:
         lengths = lengths.to(torch.int32).contiguous()
-    o = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, Hq, Dp), dtype=torch.float32, device=q.device)
     err = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        _KV_DTYPES[k.dtype], B, T, Hq, Hkv, D, n_splits, D ** -0.5, design,
+        _KV_DTYPES[k.dtype], B, T, Hq, Hkv, Dp, n_splits, D ** -0.5,
         o.data_ptr(), torch._C._cuda_getCurrentRawStream(q.device.index))
+    if err == 1:  # cudaErrorInvalidValue once the shapes passed the checks
+        raise ValueError("decode_attention kernel: splits too long for shared "
+                         "memory (raise n_splits) or too many heads for the "
+                         "grid")
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return o
-
-
-def _aligned(t):
-    """``t`` itself when it is contiguous and 16-byte aligned (the kernel
-    reads 16 bytes per lane), else a contiguous copy."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+    return o if Dp == D else o[..., :D]

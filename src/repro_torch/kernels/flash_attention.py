@@ -76,7 +76,7 @@ def flash_attention_cuda(lib, q, k, v, causal: bool = True):
         # the kernel takes D in steps of 8: zero columns leave every score
         # and the first D output columns as they are
         q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    q, k, v = (aligned16(t) for t in (q, k, v))
     o = torch.empty((B, S, Hq, Dp), dtype=q.dtype, device=q.device)
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -89,12 +89,15 @@ def flash_attention_cuda(lib, q, k, v, causal: bool = True):
     return o if Dp == D else o[..., :D]
 
 
-def _aligned(t):
-    """``t`` itself when the kernel can read it in 16-byte pieces (unit
-    innermost stride, the other strides and the pointer multiples of 16
-    bytes), else a contiguous copy."""
+def aligned16(t, contiguous: bool = False):
+    """``t`` itself when a kernel can read it in 16-byte pieces (the pointer
+    a multiple of 16 bytes; contiguous, or with ``contiguous=False`` a unit
+    innermost stride and the other strides multiples of 16 bytes), else a
+    contiguous copy. B3 takes contiguous inputs, B4 strided ones."""
     es = t.element_size()
-    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
-            all(st * es % 16 == 0 for st in t.stride()[:-1]):
+    if t.data_ptr() % 16 == 0 and (
+            t.is_contiguous() if contiguous else
+            t.stride(-1) == 1 and
+            all(st * es % 16 == 0 for st in t.stride()[:-1])):
         return t
     return t.clone(memory_format=torch.contiguous_format)

@@ -109,13 +109,16 @@ def test_gpu_mips_topk_int8_kernel_bit_for_bit(cuda, Q, N, D, k, tile):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,Hq,Hkv,D,ns", DECODE_SHAPES + [(4, 160, 16, 8,
-                                                               128, 8)])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,ns", DECODE_SHAPES + [
+    (4, 160, 16, 8, 128, 8),    # qwen3-1.7b decode
+    (2, 50, 36, 4, 128, 8),     # starcoder2-7b's G = 9: two head groups
+    (2, 40, 16, 1, 100, 4),     # G = 16, D not a multiple of 8
+    (1, 33, 6, 2, 12, 20),      # more splits than a cluster holds
+])
 def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
                                                    Hkv, D, ns):
     """The one launch ops.decode_attention makes (splits and their merge)
-    against the plain split version and the naive math, and the in-block
-    design against the same."""
+    against the plain split version and the naive math."""
     q, k, v, lengths = (_t(a).to(cuda) for a in
                         _decode_inputs(B, T, Hq, Hkv, D, T + Hq))
     k, v = k.to(kv_dtype), v.to(kv_dtype)
@@ -129,20 +132,16 @@ def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
     torch.testing.assert_close(got, split, rtol=tol, atol=tol)
     torch.testing.assert_close(got, decode_attention_plain(q, k, v, lengths),
                                rtol=tol, atol=tol)
-    blk = decode_attention_cuda(ops._lib("decode_attention"), q, k, v,
-                                lengths, ns, design=0)
-    torch.testing.assert_close(blk, split, rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("design", [0, 1])
-def test_gpu_decode_attention_split_invariance(cuda, design):
+def test_gpu_decode_attention_split_invariance(cuda):
     """f32 cache: the same output for n_splits 1, 3, 8 and 16 within 1e-5."""
     q, k, v, _ = (_t(a).to(cuda) for a in
                   _decode_inputs(4, 160, 16, 8, 128, 7))
     lengths = torch.tensor([45, 0, 159, 100], dtype=torch.int32, device=cuda)
     lib = ops._lib("decode_attention")
-    outs = [decode_attention_cuda(lib, q, k, v, lengths, ns, design)
+    outs = [decode_attention_cuda(lib, q, k, v, lengths, ns)
             for ns in (1, 3, 8, 16)]
     for o in outs[1:]:
         torch.testing.assert_close(o, outs[0], rtol=1e-5, atol=1e-5)
@@ -153,16 +152,20 @@ def test_gpu_decode_attention_split_invariance(cuda, design):
 
 @pytest.mark.gpu
 def test_gpu_decode_attention_more_splits_than_a_cluster_holds(cuda):
-    """n_splits above 16 take the in-block design through the same call."""
+    """n_splits above 16: each block of a 16-block cluster takes several
+    splits; the same output as 16 splits within 1e-5 (f32)."""
     q, k, v, lengths = (_t(a).to(cuda) for a in
                         _decode_inputs(3, 160, 8, 2, 64, 5))
     got = ops.decode_attention(q, k, v, lengths, 20)
     torch.testing.assert_close(
         got, combine_splits(*decode_partials_plain(q, k, v, lengths, 20)),
         rtol=2e-4, atol=2e-4)
-    with pytest.raises(ValueError, match="design"):
-        decode_attention_cuda(ops._lib("decode_attention"), q, k, v, lengths,
-                              20, design=1)
+    lib = ops._lib("decode_attention")
+    want = decode_attention_cuda(lib, q, k, v, lengths, 16)
+    for ns in (17, 33, 160):
+        torch.testing.assert_close(
+            decode_attention_cuda(lib, q, k, v, lengths, ns), want,
+            rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -184,10 +187,9 @@ def test_gpu_decode_attention_reads_nothing_past_the_length(cuda, kv_dtype,
     kn[past], vn[past] = float("nan"), float("nan")
     tol = 2e-4 if kv_dtype == torch.float32 else 1e-2
     want = combine_splits(*decode_partials_plain(q, k, v, lengths, 8))
-    lib = ops._lib("decode_attention")
-    for design in (0, 1):
-        got = decode_attention_cuda(lib, q, kn, vn, lengths, 8, design)
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    got = decode_attention_cuda(ops._lib("decode_attention"), q, kn, vn,
+                                lengths, 8)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     torch.testing.assert_close(ops.decode_attention(q, kn, vn, lengths, 8),
                                decode_attention_plain(q, k, v, lengths),
                                rtol=tol, atol=tol)
@@ -252,8 +254,14 @@ def test_gpu_kernel_launch_refuses_bad_inputs(cuda):
     qd = torch.zeros((1, 16, 12), device=cuda)
     kd = torch.zeros((1, 8, 8, 12), device=cuda)
     lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):  # D % 8 != 0
-        ops.decode_attention(qd, kd, kd, lens)
+    kw = torch.zeros((1, 8, 8, 256), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # D > 128
+        ops.decode_attention(torch.zeros((1, 16, 256), device=cuda), kw, kw,
+                             lens)
+    kl = torch.zeros((1, 20000, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):  # one long split
+        ops.decode_attention(torch.zeros((1, 8, 8), device=cuda), kl, kl,
+                             lens, 1)
     with pytest.raises(ValueError):                   # mixed devices
         ops.decode_attention(qd, kd.cpu(), kd, lens)
     with pytest.raises(TypeError):                    # fp16 cache

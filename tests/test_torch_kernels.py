@@ -19,7 +19,8 @@ from repro.models import layers as JLyr
 from repro_torch.kernels.decode_attention import (combine_splits,
                                                   decode_attention_plain,
                                                   decode_partials_plain)
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import (aligned16,
+                                                 flash_attention_plain)
 
 MIPS_SHAPES = [
     (4, 100, 16, 5, 32),
@@ -386,3 +387,24 @@ def test_flash_tf32_split_emulation_settles_the_f32_contract(
         assert err <= 2e-4, err
     else:
         assert err > 2e-4, err
+
+
+@pytest.mark.parametrize("contiguous", [False, True])
+def test_aligned16_copies_only_what_a_kernel_cannot_read(contiguous):
+    """The one alignment helper of B3 (contiguous inputs) and B4 (strided):
+    a tensor a kernel can read in 16-byte pieces passes through as itself,
+    any other comes back as an equal contiguous copy."""
+    base = torch.arange(4 * 6 * 3 * 16, dtype=torch.float32).reshape(
+        4, 6, 3, 16)
+    cases = [(base, True, True),
+             (base[:, 2:5], True, False),       # 16-byte strides, a T slice
+             (base[..., :12], True, False),     # 48-byte rows, strided
+             (base[..., 1:13], False, False),   # pointer off by 4 bytes
+             (base[..., ::2], False, False)]    # innermost stride 2
+    for t, strided_ok, contiguous_ok in cases:
+        out = aligned16(t, contiguous)
+        if (contiguous_ok if contiguous else strided_ok):
+            assert out is t
+        else:
+            assert out is not t and out.is_contiguous()
+            assert out.data_ptr() % 16 == 0 and torch.equal(out, t)

@@ -1,0 +1,35 @@
+"""``tools/kernel_breakdown.py`` on the CPU: every switch it applies to the
+port's attention kernels still finds its anchor, once, in the sources as
+they stand, so an edit to a kernel that breaks the tool shows here and not
+on the next run on the card."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location(
+    "kernel_breakdown", ROOT / "tools" / "kernel_breakdown.py")
+kb = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(kb)
+
+CASES = ([("decode_attention.cu", kb.B3_SWITCHES, row) for row in kb.B3_ROWS]
+         + [("flash_attention.cu", kb.B4_SWITCHES, row)
+            for row in kb.B4_ROWS])
+
+
+@pytest.mark.parametrize("source,switches,row", CASES,
+                         ids=[f"{c[0]}:{c[2]}" for c in CASES])
+def test_kernel_breakdown_switches_find_their_anchors(source, switches, row):
+    src = (kb.CSRC / source).read_text()
+    out = kb.patched(src, switches, row)
+    for name in row.split("+"):
+        if name != "base":
+            old, new = switches[name]
+            assert src.count(old) == 1 and new in out
+    assert (out == src) == (row == "base")
+
+
+def test_kernel_breakdown_refuses_a_missing_anchor():
+    with pytest.raises(SystemExit, match="not found once"):
+        kb.patched("// no kernel here\n", kb.B3_SWITCHES, "no_merge")

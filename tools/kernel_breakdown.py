@@ -11,10 +11,10 @@ off computes a wrong result and only its time is read; the difference
 between two rows is what that part costs where it lies on the kernel's
 critical path. The switches edit the source at fixed anchor lines and
 fail when an anchor is gone, so a change to the kernels shows here as an
-error, not as a silent no-op.
+error, not as a silent no-op (``tests/test_torch_tools.py`` checks on the
+CPU that every anchor is in the source once).
 
-B3 (``decode_attention.cu``, the cluster design ``ops.decode_attention``
-launches): ``empty`` returns at once, ``no_splits`` skips every split's
+B3 (``decode_attention.cu``): ``empty`` returns at once, ``no_splits`` skips every split's
 work, ``no_merge`` skips the merge, ``no_load`` reads no cache row (zeros
 in place of them). B4 (``flash_attention.cu``): ``no_merge`` skips the
 merge of the key-split warps, ``no_compute`` the MMAs and softmax,
@@ -34,15 +34,13 @@ CSRC = ROOT / "src" / "repro_torch" / "csrc"
 OUT = ROOT / "build" / "breakdown"
 
 B3_SWITCHES = {
-    "empty": ("  const int G = a.Hq / a.Hkv, sp = blockIdx.x, h = blockIdx.y,",
+    "empty": ("  const int h = blockIdx.y / ng, g0 = blockIdx.y % ng * GM,",
               "  if (a.D > 0) return;\n"
-              "  const int G = a.Hq / a.Hkv, sp = blockIdx.x, h = blockIdx.y,"),
-    "no_splits": ("  split_partial<KV, GM, kClusterWarps, kClusterU>(",
-                  "  if (a.D < 0) split_partial<KV, GM, kClusterWarps, "
-                  "kClusterU>("),
-    "no_merge": ("  merge(a, b, h, G, static_cast<int>(cl.block_rank())",
-                 "  if (a.D < 0) merge(a, b, h, G, "
-                 "static_cast<int>(cl.block_rank())"),
+              "  const int h = blockIdx.y / ng, g0 = blockIdx.y % ng * GM,"),
+    "no_splits": ("    split_partial<KV, GM>(a, b, h, G, t0, n,",
+                  "    if (a.D < 0) split_partial<KV, GM>(a, b, h, G, t0, n,"),
+    "no_merge": ("  merge(a, a.o + row0, G,",
+                 "  if (a.D < 0) merge(a, a.o + row0, G,"),
     "no_load": ("      out[u] = __ldg(reinterpret_cast<const uint4*>"
                 "(p + i * row_bytes));",
                 "      out[u] = make_uint4(i, 0u, 0u, 0u);"),
@@ -67,8 +65,8 @@ def patched(src: str, switches: dict, row: str) -> str:
         if name == "base":
             continue
         old, new = switches[name]
-        if old not in src:
-            raise SystemExit(f"anchor of {name!r} not found: {old!r}")
+        if src.count(old) != 1:
+            raise SystemExit(f"anchor of {name!r} not found once: {old!r}")
         src = src.replace(old, new)
     return src
 
@@ -140,7 +138,7 @@ def main():
                             device=dev).bfloat16() for _ in range(2))
         for length in (100, 50):
             lens = torch.full((B,), length, dtype=torch.int32, device=dev)
-            cells = [f"{row} {device_ms(torch, lambda lib=lib: da.decode_attention_cuda(lib, q, k, v, lens, ns, 1), 'decode_attention_kernel'):.4f}"
+            cells = [f"{row} {device_ms(torch, lambda lib=lib: da.decode_attention_cuda(lib, q, k, v, lens, ns), 'decode_attention_kernel'):.4f}"
                      for row, lib in b3.items()]
             print(f"B3 B={B} T={T} 16/8 heads D={D} bf16 cache, lengths "
                   f"{length}, {ns} splits: " + " | ".join(cells))
