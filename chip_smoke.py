@@ -13,9 +13,11 @@ result line is printed only when every phase passed:
    for sm_90a (in parallel) and prints each one's registers, shared
    memory and spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving shapes plus ragged (and bf16) cases, timed from the
-   profiler (median, min and max of three runs) and with CUDA events
-   beside the plain version and a one-call PyTorch yardstick; B3 as
+   the serving shapes plus ragged (bf16, f32, head dims 192 and 256)
+   cases, timed from the profiler (median, min and max of three runs; a
+   kernel the trace does not name fails the run) and with CUDA events
+   beside the plain version and a one-call PyTorch yardstick; the two
+   search kernels' launch configuration and ptxas report; B3 as
    ``gqa_decode`` calls it (one launch: the splits and their merge);
 4. slice, fp16 store — writes the paper's 150,000-pair store, opens it
    with ``StorInfer.open`` (flat index, qwen3-1.7b at full width, random
@@ -49,8 +51,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 HBM_BYTES_S = 3.35e12
-F32_FLOPS = 67e12            # CUDA cores, the f32 FMAs of B1 and B3
-# tensor cores, B4: an f32 product is three TF32 products (3xTF32)
+F32_FLOPS = 67e12            # CUDA cores, the f32 FMAs of B3
+# tensor cores: a B1 product is two TF32 products with a 16-bit store
+# (2xTF32), three with an f32 store, as is a B4 f32 product (3xTF32)
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12           # int8 rate, B2's int8 products
@@ -148,7 +151,9 @@ def _profiled_us(torch, fn, iters, kernel=None):
 def device_ms(torch, fn, iters, flush=None, kernel=None):
     """Device time per call (ms) from the profiler: the named kernel's
     time, or every device activity of the call minus the L2 flush's
-    (profiled alone). None when the trace holds no device time."""
+    (profiled alone). A trace with no device time for the call, or no
+    activity whose name holds ``kernel``, fails the run: a renamed kernel
+    must not be timed as something else."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -156,19 +161,18 @@ def device_ms(torch, fn, iters, flush=None, kernel=None):
     tot = _profiled_us(torch, step, iters, kernel)
     if flush is not None and kernel is None:
         tot -= _profiled_us(torch, lambda: flush.add_(1), iters)
-    return tot / iters / 1e3 if tot > 0 else None
+    check(tot > 0, "the profiler saw no device time" +
+          (f" in a kernel named like {kernel!r}" if kernel else ""))
+    return tot / iters / 1e3
 
 
 def timed(torch, fn, iters, flush=None, kernel=None, reps=3):
     """((min, median, max) device ms per call over ``reps`` profiled runs
-    of ``iters`` calls each, from the profiler, or the event time when a
-    trace has none; the event time per call, host gaps included)."""
+    of ``iters`` calls each, from the profiler; the event time per call,
+    host gaps included)."""
     call = time_ms(torch, fn, iters, flush)
-    devs = []
-    for _ in range(reps):
-        dev = device_ms(torch, fn, iters, flush, kernel)
-        devs.append(dev if dev is not None else call)
-    devs.sort()
+    devs = sorted(device_ms(torch, fn, iters, flush, kernel)
+                  for _ in range(reps))
     return (devs[0], devs[len(devs) // 2], devs[-1]), call
 
 
@@ -217,7 +221,32 @@ def check_mips(torch, ops, ref, q, x, k, tile, label):
     return err
 
 
-def phase_kernels(torch, np, args, dev, prompt_len):
+def launch_report(label, cfg, log, *needles):
+    """Print the launch configuration of the instance a search kernel runs
+    at the serving shape (the runtime's figures) and ptxas' report of it
+    (the lines after the entry whose mangled name holds every needle)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = cfg["grid_x"] * cfg["grid_y"]
+    print(f"{label} launch: grid {cfg['grid_x']} x {cfg['grid_y']} = "
+          f"{blocks} blocks of {cfg['threads']} threads, "
+          f"{cfg['blocks_per_sm']} blocks per SM on {sms} SMs "
+          f"({blocks / (cfg['blocks_per_sm'] * sms):.2f} waves), "
+          f"{cfg['registers']} registers, {cfg['local_bytes']} local bytes "
+          f"per thread, {cfg['smem_bytes']} B dynamic shared memory")
+    lines = log.splitlines()
+    for n, line in enumerate(lines):
+        if "Compiling entry" in line and all(w in line for w in needles):
+            for rest in lines[n + 1:n + 4]:
+                if "Compiling entry" in rest:
+                    break
+                print(f"{label} ptxas: {rest.strip()}")
+            return
+    raise SmokeFailure(f"{label}: no ptxas report for an entry named like "
+                       f"{needles}")
+
+
+def phase_kernels(torch, np, args, dev, prompt_len, logs):
     from repro_torch.core.store import quantize_rows
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import mips_topk as mt
@@ -235,10 +264,14 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     q = unit_rows(torch, g, Q, D, dev)
     x = unit_rows(torch, g, N, D, dev).half()
     err = check_mips(torch, ops, ref, q, x, k, tile, f"main Q={Q} N={N} fp16")
-    for dt in (torch.float32, torch.bfloat16):
-        check_mips(torch, ops, ref, unit_rows(torch, g, 5, 100, dev),
-                   unit_rows(torch, g, 1000, 100, dev).to(dt), 7, 512,
-                   f"ragged N=1000 D=100 k=7 {dt}")
+    for dt in (torch.bfloat16, torch.float32):
+        check_mips(torch, ops, ref, q, unit_rows(torch, g, N, D, dev).to(dt),
+                   k, tile, f"main Q={Q} N={N} {dt}")
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for qn in (5, 1, 33):
+            check_mips(torch, ops, ref, unit_rows(torch, g, qn, 100, dev),
+                       unit_rows(torch, g, 1000, 100, dev).to(dt), 7, 512,
+                       f"ragged Q={qn} N=1000 D=100 k=7 {dt}")
     qi = torch.randint(-2, 3, (5, 24), generator=g, device=dev).float()
     xi = torch.randint(-2, 3, (700, 24), generator=g, device=dev).float()
     xi[::5] = xi[0]
@@ -249,8 +282,11 @@ def phase_kernels(torch, np, args, dev, prompt_len):
               f"B1 forced ties k={kk}: not bitwise equal to plain")
     print("B1 forced ties: bitwise equal to plain (k=1,7,40,64)")
     tn = ops._clamp_tile(N, k, tile)
+    launch_report("B1", mt.launch_config(ops._lib("mips_topk"), x.dtype, Q, D,
+                                         N, k, tn),
+                  logs["mips_topk"], "Store16I6__half", "Li4ELb1E")
     ms, call = timed(torch, lambda: mt.mips_topk_tiles_cuda(
-        ops._lib("mips_topk"), q, x, k, tn), 50, flush, "mips_topk_kernel")
+        ops._lib("mips_topk"), q, x, k, tn), 50, flush, "mips_tc_kernel")
     plain, plain_call = timed(
         torch, lambda: mt.mips_topk_tiles_plain(q, x, k, tn), 10, flush)
     # the library call on the same inputs upcasts the fp16 store to f32 on
@@ -265,7 +301,14 @@ def phase_kernels(torch, np, args, dev, prompt_len):
           f"{spread(lib)} ms, on a store upcast beforehand "
           f"{spread(lib_gemm)} ms (device time per call)")
     nt = -(-N // tn)
-    b_ms, b_by = bound(nb(q, x) + nt * Q * k * 8, 2 * Q * N * D, F32_FLOPS)
+    # two TF32 products per product of an fp16 store (2xTF32)
+    b_ms, b_by = bound(nb(q, x) + nt * Q * k * 8, 2 * 2 * Q * N * D,
+                       TF32_FLOPS)
+    old_ms, old_by = bound(nb(q, x) + nt * Q * k * 8, 2 * Q * N * D,
+                           F32_FLOPS)
+    print(f"B1 bound: {b_ms:.4f} ms ({b_by}; 2xTF32 products at the TF32 "
+          f"rate); on PR 8's basis, f32 products on the CUDA cores: "
+          f"{old_ms:.4f} ms ({old_by})")
     rows.append(dict(name="mips_topk", route="cuda",
                      source="src/repro_torch/csrc/mips_topk.cu",
                      replaces="src/repro/kernels/mips_topk.py:148",
@@ -301,9 +344,21 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     check(torch.equal(v, vp) and torch.equal(i, ip),
           "B2 ragged: not bit-for-bit equal to plain")
     print("B2 ragged N=1000 D=100 k=7: bit-for-bit equal to plain")
+    for qn, dd in ((1, 99), (33, 100), (9, 24)):
+        (r8, rs), (y8, ys) = (quantize_rows(rng.standard_normal(
+            (n, dd), dtype=np.float32)) for n in (qn, 1000))
+        (v, i), (vp, ip) = b2_pair(*(torch.from_numpy(a).to(dev)
+                                     for a in (r8, rs, y8, ys)), 7, 512)
+        check(torch.equal(v, vp) and torch.equal(i, ip),
+              f"B2 ragged Q={qn} D={dd}: not bit-for-bit equal to plain")
+    print("B2 ragged Q=1 D=99, Q=33 D=100, Q=9 D=24: bit-for-bit equal to "
+          "plain")
+    launch_report("B2", mt8.launch_config(ops._lib("mips_topk_int8"), Q, D,
+                                          N, k, tn),
+                  logs["mips_topk_int8"], "StoreS8", "Li4ELb1E")
     ms, call = timed(torch, lambda: mt8.mips_topk_int8_tiles_cuda(
         ops._lib("mips_topk_int8"), q8, qs, x8, xs, k, tn), 50, flush,
-        "mips_topk_int8_kernel")
+        "mips_tc_kernel")
     plain, plain_call = timed(torch, lambda: mt8.mips_topk_int8_tiles_plain(
         q8, qs, x8, xs, k, tn), 10, flush)
     lib, lib_call = timed(torch, lambda: torch.topk(
@@ -321,10 +376,10 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     # -- B3 ------------------------------------------------------------------
     B, T, Hq, Hkv, Dh, ns = 4, 160, 16, 8, 128, 8
 
-    def b3_case(T_, lengths, dt, ns_, tol, label):
-        qq = torch.randn((B, Hq, Dh), generator=g, device=dev)
-        kk = torch.randn((B, T_, Hkv, Dh), generator=g, device=dev).to(dt)
-        vv = torch.randn((B, T_, Hkv, Dh), generator=g, device=dev).to(dt)
+    def b3_case(T_, lengths, dt, ns_, tol, label, D_=Dh):
+        qq = torch.randn((B, Hq, D_), generator=g, device=dev)
+        kk = torch.randn((B, T_, Hkv, D_), generator=g, device=dev).to(dt)
+        vv = torch.randn((B, T_, Hkv, D_), generator=g, device=dev).to(dt)
         # the one launch gqa_decode makes (the splits and their merge)
         # against the plain split version and the naive math
         got = ops.decode_attention(qq, kk, vv, lengths, ns_)
@@ -350,6 +405,11 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     b3_case(157, rag, torch.bfloat16, ns, TOL_DECODE_BF16,
             "ragged T=157 bf16")
     b3_case(157, rag, torch.float32, 3, TOL_DECODE_F32, "ragged T=157 f32")
+    for Dw in (192, 256):   # deepseek-v2-lite's heads, and the widest D
+        b3_case(T, main_len, torch.float32, ns, TOL_DECODE_F32,
+                f"wide D={Dw} f32 cache", Dw)
+        b3_case(157, rag, torch.bfloat16, ns, TOL_DECODE_BF16,
+                f"wide D={Dw} ragged T=157 bf16 cache", Dw)
     ms, call = timed(torch, lambda: ops.decode_attention(
         qq, kk, vv, main_len, ns), 200, None, "decode_attention_kernel")
     plain, plain_call = timed(torch, lambda: da.combine_splits(
@@ -435,6 +495,11 @@ def phase_kernels(torch, np, args, dev, prompt_len):
     b4_case(enc_shape, False, torch.bfloat16, "(a) MiniLM encode bf16")
     b4_case((3, 100, 100, 12, 4, 128), True, torch.bfloat16,
             "ragged S=T=100 G=3 bf16 causal")
+    for Dw in (192, 256):
+        b4_case((1, 160, 160, 16, 8, Dw), True, torch.float32,
+                f"wide D={Dw} prefill S=T=160 f32 causal")
+        b4_case((2, 70, 130, 6, 2, Dw), False, torch.bfloat16,
+                f"wide D={Dw} S=70 T=130 bf16 non-causal")
     ms, plain, lib, calls, b_ms, b_by = b4_timing(*enc_in, False, 50, flush)
     rows.append(dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/csrc/flash_attention.cu",
@@ -908,7 +973,7 @@ def main():
     unanticipated = [t for t in stream
                      if t not in exact and not t.startswith("hi, ")]
     rows = phase_kernels(torch, np, args, dev,
-                         len(tok.encode(unanticipated[0], bos=True)))
+                         len(tok.encode(unanticipated[0], bos=True)), logs)
 
     # -- phases 4, 5: the slice, fp16 then int8 -------------------------------
     counts, engine = phase_slices(torch, np, args, card, corpus)

@@ -31,10 +31,12 @@
 // gives each group of 8 clusters of its own, which read the rows again. A
 // lane reads 16 bytes (8 bf16 or 4 f32); a row of D elements takes D / 8
 // (bf16) or D / 4 (f32) lanes, so a warp reads 32 / that many rows at once
-// and keeps a few row loads per lane in flight. A split reads only the
-// positions [t0, min(t0 + tc, T, lengths[b] + 1)): no k or v row past the
-// length, and nothing at all when it lies wholly past it (its merge weight
-// exp(-1e30 - m_g) is exactly 0 in the reference, so it is left out). The
+// and keeps a few row loads per lane in flight; an f32 row wider than 128
+// (up to D = 256) takes 32 lanes of two 16-byte chunks each. A split reads
+// only the positions [t0, min(t0 + tc, T, lengths[b] + 1)): no k or v row
+// past the length, and nothing at all when it lies wholly past it (its
+// merge weight exp(-1e30 - m_g) is exactly 0 in the reference, so it is
+// left out). The
 // v rows are loaded together with the k rows, so one round trip to memory
 // serves both, and the shuffle sums of all rows and heads a lane holds are
 // sent side by side.
@@ -104,10 +106,13 @@ __device__ __forceinline__ void load_rows(const char* p, int64_t row_bytes,
 
 // The block's warps form one split's partial [m (G)][l (G)][o (G x D)] of
 // the n > 0 attended positions [t0, t0 + n) for the block's G <= GM query
-// heads of kv head h in row b, into `part` (shared memory). Warp wg reads
-// rows wg * rpw + r, then every kWarps * rpw further ones. qs holds the G query rows; sc and ps are the block's [G][tc] scores
-// and probabilities; red is [kWarps][G][D] for the sum over warps.
-template <typename KV, int GM>
+// heads of kv head h in row b, into `part` (shared memory). A row's D / V
+// 16-byte chunks take lpr lanes, CPL chunks a lane (lane c of a row holds
+// chunks c, c + lpr, ...; CPL = 2 only for an f32 cache with D above 128).
+// Warp wg reads rows wg * rpw + r, then every kWarps * rpw further ones. qs
+// holds the G query rows; sc and ps are the block's [G][tc] scores and
+// probabilities; red is [kWarps][G][D] for the sum over warps.
+template <typename KV, int GM, int CPL>
 __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
                                               int G, int t0, int n,
                                               const float* qs, float* sc,
@@ -120,38 +125,49 @@ __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
   float* pl = part + G;
   float* po = part + 2 * G;
   int lpr = 1;  // lanes per row
-  while (lpr < nch) lpr <<= 1;
+  while (lpr * CPL < nch) lpr <<= 1;
   const int rpw = 32 / lpr, r = lane / lpr, c = lane % lpr;
-  const bool on = c < nch;
+  bool on[CPL];  // chunk c + cc * lpr lies inside the row
+#pragma unroll
+  for (int cc = 0; cc < CPL; ++cc) on[cc] = c + cc * lpr < nch;
   const int first = wg * rpw + r, step = kWarps * rpw;  // this lane's rows
   const int64_t row_bytes = static_cast<int64_t>(a.Hkv) * D * sizeof(KV);
   const int64_t off =
       (static_cast<int64_t>(b) * a.T + t0) * row_bytes +
       (static_cast<int64_t>(h) * D + c * V) * sizeof(KV);
+  const int64_t cstep = static_cast<int64_t>(lpr) * 16;  // next chunk
   const char* kb = static_cast<const char*>(a.k) + off;
   const char* vb = static_cast<const char*>(a.v) + off;
   const int per = kU * step;  // rows of one batch
 
-  uint4 vr[kU];
-  load_rows(vb, row_bytes, first, step, n, on, vr);  // in flight with k
+  uint4 vr[CPL][kU];
+#pragma unroll
+  for (int cc = 0; cc < CPL; ++cc)  // in flight with k
+    load_rows(vb + cc * cstep, row_bytes, first, step, n, on[cc], vr[cc]);
   for (int j0 = first; j0 - first < n; j0 += per) {
-    uint4 kr[kU];
-    load_rows(kb, row_bytes, j0, step, n, on, kr);
+    uint4 kr[CPL][kU];
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc)
+      load_rows(kb + cc * cstep, row_bytes, j0, step, n, on[cc], kr[cc]);
     // every lane's share of the kU x G dot products first, then their
     // sums over the lpr lanes of a row, all kU x GM shuffles of a step
     // independent of each other
     float s[kU][GM];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      float kf[V];
-      unpack(kr[u], kf);
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        s[u][g] = 0.f;
-        if (on && g < G) {
-          const float* qg = qs + g * D + c * V;
+      for (int g = 0; g < GM; ++g) s[u][g] = 0.f;
 #pragma unroll
-          for (int e = 0; e < V; ++e) s[u][g] = fmaf(qg[e], kf[e], s[u][g]);
+      for (int cc = 0; cc < CPL; ++cc) {
+        float kf[V];
+        unpack(kr[cc][u], kf);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (on[cc] && g < G) {
+            const float* qg = qs + g * D + (c + cc * lpr) * V;
+#pragma unroll
+            for (int e = 0; e < V; ++e) s[u][g] = fmaf(qg[e], kf[e], s[u][g]);
+          }
         }
       }
     }
@@ -212,25 +228,35 @@ __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
   __syncwarp();
 
   // o = P.V over this warp's rows of the split
-  float acc[GM][V];
+  float acc[GM][CPL][V];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
+    for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[g][cc][e] = 0.f;
   for (int j0 = first; j0 - first < n; j0 += per) {
-    if (j0 > first) load_rows(vb, row_bytes, j0, step, n, on, vr);
+    if (j0 > first) {
+#pragma unroll
+      for (int cc = 0; cc < CPL; ++cc)
+        load_rows(vb + cc * cstep, row_bytes, j0, step, n, on[cc], vr[cc]);
+    }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int i = j0 + u * step;
       if (i >= n) continue;
-      float vf[V];
-      unpack(vr[u], vf);
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        if (g >= G) break;
-        const float p = ps[g * a.tc + i];
+      for (int cc = 0; cc < CPL; ++cc) {
+        float vf[V];
+        unpack(vr[cc][u], vf);
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+          const float p = ps[g * a.tc + i];
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[g][cc][e] = fmaf(p, vf[e], acc[g][cc][e]);
+        }
       }
     }
   }
@@ -239,15 +265,21 @@ __device__ __forceinline__ void split_partial(const Args& a, int b, int h,
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
-      for (int e = 0; e < V; ++e)
-        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-  if (r == 0 && on) {
+      for (int cc = 0; cc < CPL; ++cc)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          acc[g][cc][e] += __shfl_xor_sync(0xffffffffu, acc[g][cc][e], o);
+  if (r == 0) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
 #pragma unroll
-      for (int e = 0; e < V; ++e)
-        red[wg * G * D + g * D + c * V + e] = acc[g][e];
+      for (int cc = 0; cc < CPL; ++cc) {
+        if (!on[cc]) continue;
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          red[wg * G * D + g * D + (c + cc * lpr) * V + e] = acc[g][cc][e];
+      }
     }
   }
   __syncthreads();
@@ -295,7 +327,7 @@ __host__ __device__ __forceinline__ int splits_per_block(int ns, int cs) {
 // (kv head, head group, row) one cluster; shared memory, for the block's G
 // heads: [G][D] q, [ns / cs][2G + G D] partials, [2][G][tc] scores and
 // probabilities, [kWarps][G][D] warp sums
-template <typename KV, int GM>
+template <typename KV, int GM, int CPL>
 __global__ void __launch_bounds__(32 * kWarps)
 decode_attention_kernel(Args a) {
   extern __shared__ float4 smem4[];
@@ -325,8 +357,8 @@ decode_attention_kernel(Args a) {
       for (int g = threadIdx.x; g < G; g += blockDim.x) part[g] = -INFINITY;
       continue;
     }
-    split_partial<KV, GM>(a, b, h, G, t0, n, qs, sc, sc + G * a.tc, red,
-                          part);
+    split_partial<KV, GM, CPL>(a, b, h, G, t0, n, qs, sc, sc + G * a.tc, red,
+                               part);
   }
   cl.sync();  // every partial written
   merge(a, a.o + row0, G, cs, rank * blockDim.x + threadIdx.x,
@@ -337,15 +369,15 @@ decode_attention_kernel(Args a) {
   cl.sync();  // peers' shared memory stays until every block has read it
 }
 
-template <typename KV, int GM>
+template <typename KV, int GM, int CPL>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   // the attributes once per instantiation, not per launch
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<KV, GM>,
+        decode_attention_kernel<KV, GM, CPL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(decode_attention_kernel<KV, GM>,
+    return cudaFuncSetAttribute(decode_attention_kernel<KV, GM, CPL>,
                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
                                 1);
   }();
@@ -373,25 +405,25 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   cfg.attrs = attrs;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, decode_attention_kernel<KV, GM>, a);
+      cudaLaunchKernelEx(&cfg, decode_attention_kernel<KV, GM, CPL>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // GM: the query heads a lane keeps in registers; a G above 8 takes groups
 // of 8 in blocks of their own
-template <typename KV>
+template <typename KV, int CPL>
 cudaError_t dispatch_g(const Args& a, int B, cudaStream_t s) {
   const int G = a.Hq / a.Hkv;
-  if (G <= 1) return launch<KV, 1>(a, B, s);
-  if (G <= 2) return launch<KV, 2>(a, B, s);
-  if (G <= 4) return launch<KV, 4>(a, B, s);
-  return launch<KV, 8>(a, B, s);
+  if (G <= 1) return launch<KV, 1, CPL>(a, B, s);
+  if (G <= 2) return launch<KV, 2, CPL>(a, B, s);
+  if (G <= 4) return launch<KV, 4, CPL>(a, B, s);
+  return launch<KV, 8, CPL>(a, B, s);
 }
 
 }  // namespace
 
 // q, k, v, lengths and o contiguous and 16-byte aligned; kv_dtype: 0 = f32,
-// 2 = bf16; D a multiple of 8 up to 128; scale = D^-0.5 rounded to f32 by
+// 2 = bf16; D a multiple of 8 up to 256; scale = D^-0.5 rounded to f32 by
 // the caller, as the reference multiplies by it. o is (B, Hq, D) f32.
 // Returns a cudaError_t: cudaErrorInvalidValue also when the shapes need
 // more shared memory than a block has (a long split: raise ns).
@@ -400,12 +432,16 @@ extern "C" int decode_attention(const float* q, const void* k, const void* v,
                                 int T, int Hq, int Hkv, int D, int ns,
                                 float scale, float* o, void* stream) {
   if (B <= 0 || B > 65535 || T <= 0 || Hkv <= 0 || Hkv > 65535 ||
-      Hq % Hkv != 0 || D <= 0 || D > 128 || D % 8 != 0 || ns <= 0)
+      Hq % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 || ns <= 0)
     return cudaErrorInvalidValue;
   const Args a{q, k, v, lengths, o, T, Hq, Hkv, D, ns, (T + ns - 1) / ns,
                scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 0) return dispatch_g<float>(a, B, s);
-  if (kv_dtype == 2) return dispatch_g<__nv_bfloat16>(a, B, s);
+  // 16-byte chunks of a row: D / 4 (f32) or D / 8 (bf16); a lane takes
+  // two of them when a row has more than 32
+  if (kv_dtype == 0)
+    return D <= 128 ? dispatch_g<float, 1>(a, B, s)
+                    : dispatch_g<float, 2>(a, B, s);
+  if (kv_dtype == 2) return dispatch_g<__nv_bfloat16, 1>(a, B, s);
   return cudaErrorInvalidValue;
 }

@@ -50,7 +50,10 @@
 // numbering the keys of each 8-key step so that the accumulator's columns
 // 2t, 2t+1 are the operand's t, t+4 and reading V's rows in that order. A
 // causal warp skips the key columns past its last row. cudaFuncSetAttribute
-// runs once per instantiation.
+// runs once per instantiation. Instances cover D up to 64, 128 and 256 (the
+// widest head among the configs is deepseek-v2-lite's 192); at 256 a warp's
+// 16 x 256 f32 output accumulator alone is 128 registers a thread, and the
+// f32 tiles take 195 KB of shared memory (one block per SM).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -480,21 +483,22 @@ flash_attention_kernel(Args a) {
     wgt[threadIdx.x] = expf(pm[w * PS] - M) / fmaxf(L, 1e-30f);
   }
   __syncthreads();
-  if (threadIdx.x >= D) return;
-  // packed row r0 + row is position s, head hk * G + g
-  int s = r0 / G, g = r0 - s * G;
   const long long bs = static_cast<long long>(b) * a.S;
-  for (int row = 0; row < 16 && r0 + row < R; ++row) {
-    const float* po = part + row * DMAX + threadIdx.x;
-    float O = 0.f;
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    // packed row r0 + row is position s, head hk * G + g
+    int s = r0 / G, g = r0 - s * G;
+    for (int row = 0; row < 16 && r0 + row < R; ++row) {
+      const float* po = part + row * DMAX + c;
+      float O = 0.f;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) O = fmaf(po[w * PS], wgt[row * 4 + w], O);
-    store1(ob + ((bs + s) * a.Hq + hk * G + g) * static_cast<long long>(D) +
-               threadIdx.x,
-           O);
-    if (++g == G) {
-      g = 0;
-      ++s;
+      for (int w = 0; w < 4; ++w) O = fmaf(po[w * PS], wgt[row * 4 + w], O);
+      store1(ob + ((bs + s) * a.Hq + hk * G + g) * static_cast<long long>(D) +
+                 c,
+             O);
+      if (++g == G) {
+        g = 0;
+        ++s;
+      }
     }
   }
 }
@@ -540,14 +544,15 @@ cudaError_t launch(const Args& a0, int B, cudaStream_t stream) {
 template <typename E>
 cudaError_t dispatch_d(const Args& a, int B, cudaStream_t stream) {
   if (a.D <= 64) return launch<E, 64>(a, B, stream);
-  return launch<E, 128>(a, B, stream);
+  if (a.D <= 128) return launch<E, 128>(a, B, stream);
+  return launch<E, 256>(a, B, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 2 = bf16 (q, k, v and o alike); o is contiguous
 // (B, S, Hq, D); the strides are in elements, each a multiple of 16 bytes,
-// and the pointers 16-byte aligned; D a multiple of 8 up to 128; scale =
+// and the pointers 16-byte aligned; D a multiple of 8 up to 256; scale =
 // D^-0.5 rounded to f32 by the caller, as the reference multiplies by it.
 // Returns a cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -558,7 +563,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long v_sb, long long v_ss, long long v_sh,
                                void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || T <= 0 || Hkv <= 0 || Hkv > 65535 ||
-      Hq <= 0 || Hq % Hkv != 0 || D <= 0 || D > 128 || D % 8 != 0 ||
+      Hq <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 ||
       static_cast<long long>(Hq / Hkv) * S > (1LL << 30))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, o, S, T, Hq, Hkv, D, causal, scale,

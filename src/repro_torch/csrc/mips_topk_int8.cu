@@ -1,5 +1,6 @@
 // B2 mips_topk_int8: MIPS of an int8 query block against an int8 store with
-// exact int32 accumulation and fused per-row dequant, per-tile top-k.
+// exact int32 accumulation and fused per-row dequant, per-tile top-k, on
+// the s8 tensor cores.
 //
 // Replaces the JAX package's kernels/mips_topk_int8.py:mips_topk_int8_pallas
 // (_mips_int8_kernel + the shared tile_topk). Same contract, bit for bit
@@ -11,160 +12,113 @@
 // order is part of the result.
 //
 // What bounds it on an H100: the store is read once, N*(D+4) bytes (58 MB at
-// the paper's 150K x 384), a quarter of the fp32 bytes. The 2*Q*N*D int8
-// operations are far below the card's int8 rate, so it is memory-bound.
+// the paper's 150,000 x 384, 0.0174 ms at 3.35 TB/s). The 2*Q*N*D int8
+// products (3.7 G at Q = 32) take 0.0019 ms at the tensor cores' 1,979
+// TOP/s, so it is bound by bytes.
 //
-// Design: as mips_topk.cu, one block per (store tile, block of up to 32
-// queries), with depth chunks of 256 store rows and of the queries staged in
-// shared memory as packed 4-byte words. Each thread keeps a 4 rows x
-// 8 queries int32 register tile and accumulates with __dp4a (s8.s8 -> s32,
-// four products per instruction, exact). D arrives padded to a multiple of 4
-// with zeros (kernels/ops.py), which leaves the sums unchanged.
+// Design (mips_tc.cuh, as mips_topk.cu): one block of four warps per (store
+// tile, block of up to 32 queries), three blocks per SM, a three-stage
+// cp.async ring of 64-byte depth chunks of 256 store rows and the queries,
+// and mma.sync m16n8k32 s8 x s8 -> s32. ldmatrix.x4 of 16 rows x 32 bytes
+// is exactly the MMA's A fragment (row g, bytes 4t..4t+3 and 16 + 4t..);
+// the query fragment is two 4-byte loads (stride 20 words: free of bank
+// conflicts). Depth past D is zero-filled in shared memory, so any D runs
+// with no copy of the store.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tile_topk.cuh"
+#include "mips_tc.cuh"
 
 namespace {
 
-using storinfer::kNeg;
+using namespace storinfer::mips;
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;   // store rows staged per pass, one per thread
-constexpr int kWords = 16;   // depth chunk: 16 words = 64 int8 values
-
-template <int QB>
-__global__ void __launch_bounds__(kThreads)
-mips_topk_int8_kernel(const int8_t* __restrict__ q,
-                      const float* __restrict__ q_scale,
-                      const int8_t* __restrict__ x,
-                      const float* __restrict__ x_scale, int Q, int D, int N,
-                      int k, int tile_n, bool vec_ok,
-                      float* __restrict__ out_v, int* __restrict__ out_i) {
-  constexpr int TY = QB / 8;
-  constexpr int TX = kThreads / TY;
-  constexpr int RPT = kRows / TX;
-  extern __shared__ float smem[];
-  int* xs = reinterpret_cast<int*>(smem);     // [kWords][kRows]
-  int* qs = xs + kWords * kRows;              // [kWords][QB]
-  float* sc = reinterpret_cast<float*>(qs + kWords * QB);  // [QB][tile_n]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int tile = blockIdx.x;
-  const int q0 = blockIdx.y * QB;
-  const int nq = min(QB, Q - q0);
-  const int W = D / 4;  // words per row
-  const int64_t tile_row0 = static_cast<int64_t>(tile) * tile_n;
-  const int* qw = reinterpret_cast<const int*>(q);
-
-  for (int sub = 0; sub * kRows < tile_n; ++sub) {
-    const int local0 = sub * kRows;
-    const int64_t row = tile_row0 + local0 + tid;
-    const bool row_valid = (local0 + tid < tile_n) && row < N;
-    const int* xrow = reinterpret_cast<const int*>(x) + row * W;
-    int acc[RPT][8];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-
-    for (int w0 = 0; w0 < W; w0 += kWords) {
-      __syncthreads();  // previous chunk fully consumed
-      if (row_valid && vec_ok && w0 + kWords <= W) {
-#pragma unroll
-        for (int g = 0; g < kWords / 4; ++g) {
-          const int4 v = reinterpret_cast<const int4*>(xrow + w0)[g];
-          xs[(4 * g + 0) * kRows + tid] = v.x;
-          xs[(4 * g + 1) * kRows + tid] = v.y;
-          xs[(4 * g + 2) * kRows + tid] = v.z;
-          xs[(4 * g + 3) * kRows + tid] = v.w;
-        }
-      } else {
-#pragma unroll 4
-        for (int j = 0; j < kWords; ++j)
-          xs[j * kRows + tid] = (row_valid && w0 + j < W) ? xrow[w0 + j] : 0;
-      }
-      for (int e = tid; e < kWords * QB; e += kThreads) {
-        const int j = e / kWords, w = e % kWords;
-        qs[w * QB + j] = (j < nq && w0 + w < W)
-                             ? qw[static_cast<int64_t>(q0 + j) * W + w0 + w]
-                             : 0;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int w = 0; w < kWords; ++w) {
-        const int4 qa = *reinterpret_cast<const int4*>(qs + w * QB + ty * 8);
-        const int4 qb = *reinterpret_cast<const int4*>(qs + w * QB + ty * 8 + 4);
-        const int qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int xv = xs[w * kRows + tx + TX * i];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(xv, qv[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int c = local0 + tx + TX * i;
-      if (c >= tile_n) continue;
-      const int64_t r = tile_row0 + c;
-      const bool valid = r < N;
-      const float xsc = valid ? x_scale[r] : 1.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float s = kNeg;
-        if (valid) {
-          const float qsc = (ty * 8 + j < nq) ? q_scale[q0 + ty * 8 + j] : 1.f;
-          // (acc -> f32) * q_scale, then * x_scale: each product rounded
-          s = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), qsc), xsc);
-        }
-        sc[(ty * 8 + j) * tile_n + c] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  const int warp = tid / 32;
-  for (int j = warp; j < nq; j += kThreads / 32) {
-    const int64_t o = (static_cast<int64_t>(tile) * Q + q0 + j) * k;
-    storinfer::warp_tile_topk(sc + j * tile_n, tile_n, k,
-                              static_cast<int>(tile_row0), out_v + o,
-                              out_i + o);
-  }
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int QB>
-cudaError_t launch(const int8_t* q, const float* qs, const int8_t* x,
-                   const float* xs, int Q, int D, int N, int k, int tile_n,
-                   int vec_ok, float* out_v, int* out_i, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(int) * (static_cast<size_t>(kWords) * kRows + kWords * QB +
-                     static_cast<size_t>(QB) * tile_n);
-  cudaError_t err = cudaFuncSetAttribute(
-      mips_topk_int8_kernel<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int nt = (N + tile_n - 1) / tile_n;
-  const dim3 grid(nt, (Q + QB - 1) / QB);
-  mips_topk_int8_kernel<QB><<<grid, kThreads, smem, stream>>>(
-      q, qs, x, xs, Q, D, N, k, tile_n, vec_ok != 0, out_v, out_i);
-  return cudaGetLastError();
+struct StoreS8 {
+  using Acc = int;
+  static constexpr int kXBytes = 1;
+  static constexpr int kQBytes = 1;
+  static constexpr int kQChunk = kChunk;
+  static constexpr int kQStride = kQChunk / 4 + 4;  // 4 mod 8 words
+  // a stage: kChunk values of a row, k32 steps
+  template <int NQ>
+  static __device__ __forceinline__ void compute(int (&acc)[kMT][NQ][4],
+                                                 const char* xs,
+                                                 const uint32_t* qs,
+                                                 int lane, int nmt) {
+    const int lg = lane >> 2, lt = lane & 3;
+    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int s = 0; s < kChunk / 32; ++s) {
+      uint32_t b[NQ][2];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const uint32_t* qr = qs + (j * 8 + lg) * kQStride + 8 * s + lt;
+        b[j][0] = qr[0];
+        b[j][1] = qr[4];
+      }
+      const int piece = 2 * s + (lane >> 4);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (mt >= nmt) break;
+        const int r = mt * 16 + lrow;
+        uint32_t a[4];
+        ldmatrix_x4(a, xs + r * kChunk + (swz(r, piece) << 4));
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) mma_s8(acc[mt][j], a, b[j][0], b[j][1]);
+      }
+    }
+  }
+  static __device__ __forceinline__ float row_scale(int64_t row,
+                                                    const Params& p) {
+    return __ldg(p.x_scale + row);
+  }
+  static __device__ __forceinline__ float query_scale(int q,
+                                                      const Params& p) {
+    return __ldg(p.q_scale + q);
+  }
+  // (acc -> f32) * q_scale, then * x_scale: each product rounded
+  static __device__ __forceinline__ float score(int acc, float xsc,
+                                                float qsc) {
+    return __fmul_rn(__fmul_rn(__int2float_rn(acc), qsc), xsc);
+  }
+};
+
+int entry(const int8_t* q, const float* q_scale, const int8_t* x,
+          const float* x_scale, int Q, int D, int N, int k, int tile_n,
+          int x_gran, int q_gran, float* out_v, int* out_i, int* config,
+          void* stream) {
+  const Params p{q, q_scale, x,      x_scale, Q,     D,     N,
+                 k, tile_n,  x_gran, q_gran,  out_v, out_i};
+  return run<StoreS8>(p, config, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// D must be a multiple of 4. Returns a cudaError_t.
+// Any D; x_gran / q_gran: the largest of 16, 8 and 4 that
+// divides a row's bytes and the base address (0 if none). Returns a
+// cudaError_t: cudaErrorInvalidValue also when k > 1 and the [32][tile_n]
+// score table does not fit in shared memory.
 extern "C" int mips_topk_int8(const int8_t* q, const float* q_scale,
                               const int8_t* x, const float* x_scale, int Q,
-                              int D, int N, int k, int tile_n, int vec_ok,
-                              float* out_v, int* out_i, void* stream) {
-  if (D % 4 != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Q <= 8)
-    return launch<8>(q, q_scale, x, x_scale, Q, D, N, k, tile_n, vec_ok, out_v,
-                     out_i, s);
-  return launch<32>(q, q_scale, x, x_scale, Q, D, N, k, tile_n, vec_ok, out_v,
-                    out_i, s);
+                              int D, int N, int k, int tile_n, int x_gran,
+                              int q_gran, float* out_v, int* out_i,
+                              void* stream) {
+  return entry(q, q_scale, x, x_scale, Q, D, N, k, tile_n, x_gran, q_gran,
+               out_v, out_i, nullptr, stream);
+}
+
+// The launch configuration the same arguments get (see mips_topk_config).
+extern "C" int mips_topk_int8_config(int Q, int D, int N, int k, int tile_n,
+                                     int* out) {
+  return entry(nullptr, nullptr, nullptr, nullptr, Q, D, N, k, tile_n, 16,
+               16, nullptr, nullptr, out, nullptr);
 }

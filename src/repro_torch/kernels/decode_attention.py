@@ -33,7 +33,7 @@ import torch
 from repro_torch.kernels.flash_attention import aligned16
 
 NEG = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
             + [ctypes.c_void_p] * 2)

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 NEG = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
             + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])

@@ -17,9 +17,8 @@ from repro_torch.kernels.ref import topk_by_value
 NEG = -1e30
 
 # ctypes signature of the C entry in csrc/mips_topk.cu
-ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p] * 3)
 _X_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -39,10 +38,57 @@ def mips_topk_tiles_plain(q: torch.Tensor, x: torch.Tensor, k: int,
     return vals.contiguous(), (idx + offs[:, None, None]).contiguous()
 
 
+def granule(t: torch.Tensor) -> int:
+    """The largest of 16, 8 and 4 bytes that divides both the row bytes of
+    the 2-D contiguous ``t`` and its address (the kernels' cp.async size),
+    or 0: such rows are read with plain loads."""
+    rb = t.shape[1] * t.element_size()
+    for g in (16, 8, 4):
+        if rb % g == 0 and t.data_ptr() % g == 0:
+            return g
+    return 0
+
+
+def launch_error(name: str, err: int, tile_n: int):
+    """The exception for a nonzero cudaError_t from a search kernel."""
+    if err == 1:  # cudaErrorInvalidValue once the shapes passed the checks
+        return ValueError(f"{name} kernel: tile_n={tile_n} needs more shared "
+                          "memory per block than the card has (k > 1 keeps "
+                          "a [32][tile_n] score table), or N or Q is out of "
+                          "the kernel's range")
+    return RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+CONFIG_KEYS = ("grid_x", "grid_y", "threads", "blocks_per_sm", "registers",
+               "local_bytes", "smem_bytes")
+
+
+def read_config(name: str, err: int, out, tile_n: int) -> dict:
+    """The launch configuration a ``*_config`` C entry wrote into ``out``:
+    grid, threads, blocks per SM, registers, spilled (local) bytes per
+    thread, dynamic shared memory per block."""
+    if err:
+        raise launch_error(name, err, tile_n)
+    return dict(zip(CONFIG_KEYS, list(out)))
+
+
+def launch_config(lib, x_dtype: torch.dtype, Q: int, D: int, N: int, k: int,
+                  tile_n: int) -> dict:
+    """The launch configuration ``mips_topk_tiles_cuda`` gets for these
+    shapes (``read_config``)."""
+    fn = lib.mips_topk_config
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(CONFIG_KEYS))()
+    err = fn(_X_DTYPES[x_dtype], Q, D, N, k, tile_n, ctypes.addressof(out))
+    return read_config("mips_topk", err, out, tile_n)
+
+
 def mips_topk_tiles_cuda(lib, q: torch.Tensor, x: torch.Tensor, k: int,
                          tile_n: int):
     """Launch the kernel on ``q``'s current stream; same result as
-    ``mips_topk_tiles_plain``."""
+    ``mips_topk_tiles_plain``. Copies nothing of ``x`` (a contiguous
+    store); any D runs, the kernel zero-fills depth past D."""
     if not (q.is_cuda and x.is_cuda and q.device == x.device):
         raise ValueError("mips_topk kernel: q and x must be on one CUDA device")
     if q.dtype != torch.float32 or x.dtype not in _X_DTYPES:
@@ -57,18 +103,13 @@ def mips_topk_tiles_cuda(lib, q: torch.Tensor, x: torch.Tensor, k: int,
     if not 1 <= k <= tile_n:
         raise ValueError(f"mips_topk kernel: need 1 <= k={k} <= "
                          f"tile_n={tile_n}")
-    qb = 8 if Q <= 8 else 32
-    smem = 4 * (32 * 256 + 32 * qb + qb * tile_n)
-    if smem > 227 * 1024:
-        raise ValueError(f"mips_topk kernel: tile_n={tile_n} needs {smem} B "
-                         "of shared memory per block")
     nt = -(-N // tile_n)
     vals = torch.empty((nt, Q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((nt, Q, k), dtype=torch.int32, device=q.device)
-    vec_ok = int(x.data_ptr() % 16 == 0 and (D * x.element_size()) % 16 == 0)
     err = lib.mips_topk(q.data_ptr(), x.data_ptr(), _X_DTYPES[x.dtype], Q, D,
-                        N, k, tile_n, vec_ok, vals.data_ptr(), idx.data_ptr(),
+                        N, k, tile_n, granule(x), granule(q),
+                        vals.data_ptr(), idx.data_ptr(),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"mips_topk kernel launch failed: CUDA error {err}")
+        raise launch_error("mips_topk", err, tile_n)
     return vals, idx

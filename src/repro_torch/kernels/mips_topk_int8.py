@@ -14,14 +14,14 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.mips_topk import (CONFIG_KEYS, granule,
+                                           launch_error, read_config)
 from repro_torch.kernels.ref import topk_by_value
 
 NEG = -1e30
 
-ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 3)
 
 
 def int8_scores_plain(q, q_scale, x, x_scale):
@@ -47,10 +47,23 @@ def mips_topk_int8_tiles_plain(q, q_scale, x, x_scale, k: int, tile_n: int):
     return vals.contiguous(), (idx + offs[:, None, None]).contiguous()
 
 
+def launch_config(lib, Q: int, D: int, N: int, k: int, tile_n: int) -> dict:
+    """The launch configuration ``mips_topk_int8_tiles_cuda`` gets for
+    these shapes (``mips_topk.read_config``)."""
+    fn = lib.mips_topk_int8_config
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(CONFIG_KEYS))()
+    err = fn(Q, D, N, k, tile_n, ctypes.addressof(out))
+    return read_config("mips_topk_int8", err, out, tile_n)
+
+
 def mips_topk_int8_tiles_cuda(lib, q, q_scale, x, x_scale, k: int,
                               tile_n: int):
     """Launch the kernel on ``q``'s current stream; same result as
-    ``mips_topk_int8_tiles_plain``."""
+    ``mips_topk_int8_tiles_plain``. Copies nothing of ``x`` (a contiguous
+    store) on any D: the kernel zero-fills depth past D in shared
+    memory."""
     ts = (q, q_scale, x, x_scale)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("mips_topk_int8 kernel: inputs must be on one CUDA "
@@ -67,32 +80,17 @@ def mips_topk_int8_tiles_cuda(lib, q, q_scale, x, x_scale, k: int,
     if not 1 <= k <= tile_n:
         raise ValueError(f"mips_topk_int8 kernel: need 1 <= k={k} <= "
                          f"tile_n={tile_n}")
-    qb = 8 if Q <= 8 else 32
-    smem = 4 * (16 * 256 + 16 * qb + qb * tile_n)
-    if smem > 227 * 1024:
-        raise ValueError(f"mips_topk_int8 kernel: tile_n={tile_n} needs "
-                         f"{smem} B of shared memory per block")
-    pad = (-D) % 4          # zero depth padding leaves every sum unchanged
-    if pad:
-        q = torch.nn.functional.pad(q, (0, pad))
-        x = torch.nn.functional.pad(x, (0, pad))
-        D += pad
     q, x = q.contiguous(), x.contiguous()
     q_scale = q_scale.float().contiguous()
     x_scale = x_scale.float().contiguous()
-    if q.data_ptr() % 4:
-        q = q.clone()
     nt = -(-N // tile_n)
     vals = torch.empty((nt, Q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((nt, Q, k), dtype=torch.int32, device=q.device)
-    vec_ok = int(x.data_ptr() % 16 == 0 and D % 16 == 0)
-    if not vec_ok and x.data_ptr() % 4:
-        x = x.clone()
     err = lib.mips_topk_int8(q.data_ptr(), q_scale.data_ptr(), x.data_ptr(),
-                             x_scale.data_ptr(), Q, D, N, k, tile_n, vec_ok,
-                             vals.data_ptr(), idx.data_ptr(),
+                             x_scale.data_ptr(), Q, D, N, k, tile_n,
+                             granule(x), granule(q), vals.data_ptr(),
+                             idx.data_ptr(),
                              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"mips_topk_int8 kernel launch failed: CUDA error "
-                           f"{err}")
+        raise launch_error("mips_topk_int8", err, tile_n)
     return vals, idx

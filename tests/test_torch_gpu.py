@@ -47,6 +47,10 @@ FLASH_SHAPES = [
     (1, 37, 37, 16, 8, 128, True),      # S not a multiple of 16
     (3, 23, 29, 4, 2, 64, False),       # S, T not multiples of 16
     (1, 21, 21, 4, 2, 100, True),       # D not a multiple of 8
+    (1, 160, 160, 16, 8, 192, True),    # deepseek-v2-lite's head dim
+    (1, 46, 46, 16, 8, 256, True),      # the widest head dim, key split
+    (2, 70, 130, 6, 2, 256, False),
+    (3, 37, 37, 4, 4, 200, True),       # 64-row blocks at D = 200
 ]
 
 
@@ -75,6 +79,31 @@ def cuda():
                                    torch.bfloat16])
 @pytest.mark.parametrize("Q,N,D,k,tile", MIPS_SHAPES)
 def test_gpu_mips_topk_kernel_matches_plain(cuda, dtype, Q, N, D, k, tile):
+    _check_mips(cuda, dtype, Q, N, D, k, tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_gpu_mips_topk_paper_shape(cuda, dtype):
+    """B1 at the paper's store: 32 queries, 150,000 x 384, k 1, tile 512
+    (2xTF32 for a 16-bit store, 3xTF32 for f32)."""
+    _check_mips(cuda, dtype, 32, 150000, 384, 1, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("Q", [1, 9, 33, 64])
+@pytest.mark.parametrize("D", [24, 100, 99])
+def test_gpu_mips_topk_query_blocks_and_narrow_rows(cuda, dtype, Q, D):
+    """Query blocks of 8, 16 and 32 (and Q above 32 in several), and store
+    rows of 48-400 bytes: D = 100 in fp16 is 200 bytes a row, not a
+    multiple of 16, and D = 99 an odd number of 16-bit words."""
+    _check_mips(cuda, dtype, Q, 1000, D, 7, 512)
+
+
+def _check_mips(cuda, dtype, Q, N, D, k, tile):
     from repro_torch.kernels.mips_topk import mips_topk_tiles_plain
     g = torch.Generator(device=cuda).manual_seed(Q + N)
     q = torch.randn((Q, D), generator=g, device=cuda)
@@ -97,14 +126,53 @@ def test_gpu_mips_topk_kernel_matches_plain(cuda, dtype, Q, N, D, k, tile):
 @pytest.mark.parametrize("Q,N,D,k,tile", MIPS_SHAPES + [(32, 150000, 384, 1,
                                                          512)])
 def test_gpu_mips_topk_int8_kernel_bit_for_bit(cuda, Q, N, D, k, tile):
-    rng = np.random.default_rng(Q * 7 + N)
+    _check_mips_int8(cuda, Q, N, D, k, tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 9, 33, 64])
+@pytest.mark.parametrize("D", [24, 100, 99])
+def test_gpu_mips_topk_int8_query_blocks_and_narrow_rows(cuda, Q, D):
+    """D = 100 and 99: rows that are no multiple of the MMA's 32-deep step
+    nor of 16 bytes, zero-filled in shared memory by the kernel."""
+    _check_mips_int8(cuda, Q, 1000, D, 7, 512)
+
+
+def _check_mips_int8(cuda, Q, N, D, k, tile):
+    rng = np.random.default_rng(Q * 7 + N + D)
     q8, qs = quantize_rows(rng.normal(size=(Q, D)).astype(np.float32))
     x8, xs = quantize_rows(rng.normal(size=(N, D)).astype(np.float32))
+    n0 = ops.mips_topk_int8.launches
     v, i = ops.mips_topk_int8(*(_t(a).to(cuda) for a in (q8, qs, x8, xs)),
                               k, tile)
+    assert ops.mips_topk_int8.launches == n0 + 1
     vr, ir = ref.mips_topk_int8_ref(q8, qs, x8, xs, k)
     assert np.array_equal(v.cpu().numpy(), vr)
     assert np.array_equal(i.cpu().numpy(), ir)
+
+
+@pytest.mark.gpu
+def test_gpu_mips_topk_int8_copies_no_store(cuda):
+    """At D = 100 (the kernel steps 32 deep, the old wrapper padded the
+    store to a multiple of 4 bytes) the launch allocates its outputs and
+    nothing near the store's size."""
+    from repro_torch.kernels.mips_topk_int8 import (
+        mips_topk_int8_tiles_cuda, mips_topk_int8_tiles_plain)
+    rng = np.random.default_rng(3)
+    q8, qs = quantize_rows(rng.normal(size=(4, 100)).astype(np.float32))
+    x8, xs = quantize_rows(rng.normal(size=(200000, 100)).astype(np.float32))
+    t = [_t(a).to(cuda) for a in (q8, qs, x8, xs)]
+    lib = ops._lib("mips_topk_int8")
+    mips_topk_int8_tiles_cuda(lib, *t, 1, 512)      # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    v, i = mips_topk_int8_tiles_cuda(lib, *t, 1, 512)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    assert extra <= v.numel() * 8 + 4096, extra      # the store: 20 MB
+    vp, ip = mips_topk_int8_tiles_plain(*t, 1, 512)
+    assert torch.equal(v, vp) and torch.equal(i, ip)
 
 
 @pytest.mark.gpu
@@ -114,6 +182,9 @@ def test_gpu_mips_topk_int8_kernel_bit_for_bit(cuda, Q, N, D, k, tile):
     (2, 50, 36, 4, 128, 8),     # starcoder2-7b's G = 9: two head groups
     (2, 40, 16, 1, 100, 4),     # G = 16, D not a multiple of 8
     (1, 33, 6, 2, 12, 20),      # more splits than a cluster holds
+    (4, 160, 16, 8, 192, 8),    # deepseek-v2-lite's 192-wide heads
+    (2, 40, 16, 2, 256, 20),    # the widest head dim, 20 splits
+    (2, 50, 8, 8, 200, 3),      # D = 200: two 16-byte chunks a lane (f32)
 ])
 def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
                                                    Hkv, D, ns):
@@ -246,17 +317,17 @@ def test_gpu_kernel_launch_refuses_bad_inputs(cuda):
         ops.flash_attention(qa.half(), qa.half(), qa.half())
     with pytest.raises(TypeError):                    # mixed dtypes
         ops.flash_attention(qa, qa.bfloat16(), qa)
-    wide = torch.zeros((1, 4, 2, 256), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    wide = torch.zeros((1, 4, 2, 264), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):   # D > 256
         ops.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError):                   # Hq % Hkv != 0
         ops.flash_attention(torch.zeros((1, 4, 3, 16), device=cuda), qa, qa)
     qd = torch.zeros((1, 16, 12), device=cuda)
     kd = torch.zeros((1, 8, 8, 12), device=cuda)
     lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    kw = torch.zeros((1, 8, 8, 256), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):  # D > 128
-        ops.decode_attention(torch.zeros((1, 16, 256), device=cuda), kw, kw,
+    kw = torch.zeros((1, 8, 8, 264), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # D > 256
+        ops.decode_attention(torch.zeros((1, 16, 264), device=cuda), kw, kw,
                              lens)
     kl = torch.zeros((1, 20000, 1, 8), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):  # one long split
@@ -267,6 +338,26 @@ def test_gpu_kernel_launch_refuses_bad_inputs(cuda):
     with pytest.raises(TypeError):                    # fp16 cache
         ops.decode_attention(qd[..., :8], kd[..., :8].half(),
                              kd[..., :8].half(), lens)
+
+
+@pytest.mark.gpu
+def test_gpu_search_kernels_refuse_a_score_table_past_shared_memory(cuda):
+    """k > 1 keeps a [queries][tile_n] score table in shared memory; the
+    launcher refuses one that does not fit and the wrapper raises, while
+    k = 1 (no table) takes the same tile."""
+    from repro_torch.kernels.mips_topk import mips_topk_tiles_cuda
+    from repro_torch.kernels.mips_topk_int8 import mips_topk_int8_tiles_cuda
+    q = torch.zeros((4, 64), device=cuda)
+    x = torch.zeros((8192, 64), device=cuda, dtype=torch.float16)
+    lib = ops._lib("mips_topk")
+    with pytest.raises(ValueError, match="shared memory"):
+        mips_topk_tiles_cuda(lib, q, x, 2, 8192)
+    assert mips_topk_tiles_cuda(lib, q, x, 1, 8192)[1].shape == (1, 4, 1)
+    q8, x8 = q.to(torch.int8), x.to(torch.int8)
+    qs, xs = torch.ones(4, device=cuda), torch.ones(8192, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        mips_topk_int8_tiles_cuda(ops._lib("mips_topk_int8"), q8, qs, x8, xs,
+                                  2, 8192)
 
 
 @pytest.mark.gpu

@@ -389,6 +389,96 @@ def test_flash_tf32_split_emulation_settles_the_f32_contract(
         assert err > 2e-4, err
 
 
+# ---------------------------------------------------------------------------
+# B1 on the tensor cores: the 2xTF32 / 3xTF32 split, emulated
+# ---------------------------------------------------------------------------
+
+
+def _tf32_mips(q, x, passes):
+    """q @ x^T as B1 forms it from TF32 operands, the products summed in
+    f64 (the tensor cores' own f32 sums are left out): one pass rounds both
+    operands to TF32; two split the query, q = big + small, and keep x as it
+    is (a 16-bit store); three split both (an f32 store), leaving out
+    small x small."""
+    qb, xb = _tf32(q), _tf32(x)
+    qs, xs = _tf32(q - qb), _tf32(x - xb)
+
+    def dot(a, b):
+        return a.double() @ b.double().T
+    if passes == 1:
+        return dot(qb, xb)
+    if passes == 2:
+        return dot(qs, x) + dot(qb, x)
+    return dot(qs, xb) + dot(qb, xs) + dot(qb, xb)
+
+
+def _unit_rows(rng, n, d):
+    a = rng.normal(size=(n, d))
+    return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("passes,dtype", [
+    (1, torch.float16), (2, torch.float16), (2, torch.bfloat16),
+    (3, torch.float32)])
+def test_mips_tf32_split_emulation_settles_the_contract(passes, dtype):
+    """B1's arithmetic at the paper's width (D = 384, unit rows, Q = 32):
+    against the f64 scores of the same store values, one TF32 pass misses
+    the 1e-5 contract on many scores, 2xTF32 holds it for fp16 and bf16
+    stores and 3xTF32 for an f32 store, with room to spare."""
+    rng = np.random.default_rng(0)
+    q = _t(_unit_rows(rng, 32, 384))
+    x = _t(_unit_rows(rng, 4000, 384)).to(dtype).float()
+    want = q.double() @ x.double().T
+    err = (_tf32_mips(q, x, passes) - want).abs()
+    outside = err > 1e-5 + 1e-5 * want.abs()
+    if passes == 1:
+        assert float(outside.double().mean()) > 0.1, float(err.max())
+    else:
+        assert not outside.any() and float(err.max()) < 1e-7, float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_16bit_store_values_are_exact_in_tf32(dtype):
+    """Every finite fp16 and bf16 value, subnormals included, is its own
+    TF32 rounding, which is why B1 splits only the query of a 16-bit
+    store."""
+    v = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(dtype).float()
+    v = v[torch.isfinite(v)]
+    assert torch.equal(_tf32(v), v)
+
+
+def test_query_split_reproduces_q_to_2_pow_minus_22():
+    """q_big + q_small, each a TF32 value, is q to 2^-22 relative, across
+    f32's normal range."""
+    rng = np.random.default_rng(1)
+    q = _t((rng.normal(size=100000) *
+            2.0 ** rng.integers(-100, 100, 100000)).astype(np.float32))
+    big = _tf32(q)
+    small = _tf32(q - big)
+    assert torch.equal(_tf32(small), small)
+    err = (big.double() + small.double() - q.double()).abs()
+    assert bool((err <= 2.0 ** -22 * q.double().abs()).all())
+
+
+def test_search_kernels_copy_granule():
+    """The cp.async size the search wrappers hand their kernels: the largest
+    of 16, 8 and 4 bytes that divides a row's bytes and the address, else 0
+    (plain loads); so no store is copied or padded for its alignment."""
+    from repro_torch.kernels.mips_topk import granule
+    for d, dt, want in ((100, torch.float16, 8), (100, torch.int8, 4),
+                        (99, torch.int8, 0), (99, torch.float16, 0),
+                        (24, torch.float32, 16), (99, torch.float32, 4),
+                        (384, torch.int8, 16), (384, torch.float16, 16)):
+        x = torch.zeros((3, d), dtype=dt)
+        assert x.data_ptr() % 16 == 0
+        assert granule(x) == want, (d, dt)
+    flat = torch.zeros(128, dtype=torch.int8)
+    assert flat.data_ptr() % 16 == 0
+    assert granule(flat[4:100].view(6, 16)) == 4      # 16-byte rows at +4
+    assert granule(flat[8:104].view(6, 16)) == 8
+
+
 @pytest.mark.parametrize("contiguous", [False, True])
 def test_aligned16_copies_only_what_a_kernel_cannot_read(contiguous):
     """The one alignment helper of B3 (contiguous inputs) and B4 (strided):

@@ -1,7 +1,8 @@
-"""``tools/kernel_breakdown.py`` on the CPU: every switch it applies to the
-port's attention kernels still finds its anchor, once, in the sources as
-they stand, so an edit to a kernel that breaks the tool shows here and not
-on the next run on the card."""
+"""The port's chip tools on the CPU: every switch
+``tools/kernel_breakdown.py`` applies to the port's kernels still finds its
+anchor, once, in the sources as they stand, so an edit to a kernel that
+breaks the tool shows here and not on the next run on the card; and
+``tools/search_shapes.py`` times the shapes the GPU tests use."""
 import importlib.util
 from pathlib import Path
 
@@ -15,7 +16,8 @@ _spec.loader.exec_module(kb)
 
 CASES = ([("decode_attention.cu", kb.B3_SWITCHES, row) for row in kb.B3_ROWS]
          + [("flash_attention.cu", kb.B4_SWITCHES, row)
-            for row in kb.B4_ROWS])
+            for row in kb.B4_ROWS]
+         + [("mips_tc.cuh", kb.MIPS_SWITCHES, row) for row in kb.MIPS_ROWS])
 
 
 @pytest.mark.parametrize("source,switches,row", CASES,
@@ -33,3 +35,17 @@ def test_kernel_breakdown_switches_find_their_anchors(source, switches, row):
 def test_kernel_breakdown_refuses_a_missing_anchor():
     with pytest.raises(SystemExit, match="not found once"):
         kb.patched("// no kernel here\n", kb.B3_SWITCHES, "no_merge")
+
+
+def test_search_shapes_are_the_gpu_tests_shapes():
+    """tools/search_shapes.py times B1 and B2 at the shapes the GPU tests
+    hold them to."""
+    spec = importlib.util.spec_from_file_location(
+        "search_shapes", ROOT / "tools" / "search_shapes.py")
+    ss = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ss)
+    spec = importlib.util.spec_from_file_location(
+        "gpu_tests", ROOT / "tests" / "test_torch_gpu.py")
+    gt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gt)
+    assert ss.MIPS_SHAPES == gt.MIPS_SHAPES

@@ -1,6 +1,6 @@
-"""Where a port attention kernel's time goes, on one NVIDIA GPU: times the
-kernel as built from ``src/repro_torch/csrc`` beside copies of its source
-with one part switched off, at the shapes the serving path gives it.
+"""Where a port kernel's time goes, on one NVIDIA GPU: times the kernel as
+built from ``src/repro_torch/csrc`` beside copies of its source with one
+part switched off, at the shapes the serving path gives it.
 
     python tools/kernel_breakdown.py
 
@@ -18,7 +18,9 @@ B3 (``decode_attention.cu``): ``empty`` returns at once, ``no_splits`` skips eve
 work, ``no_merge`` skips the merge, ``no_load`` reads no cache row (zeros
 in place of them). B4 (``flash_attention.cu``): ``no_merge`` skips the
 merge of the key-split warps, ``no_compute`` the MMAs and softmax,
-``no_load`` every ``cp.async``.
+``no_load`` every ``cp.async``. B1 and B2 (``mips_tc.cuh``, their shared
+scan): ``empty`` returns at once, ``no_mma`` skips the MMAs, ``no_load``
+every 16-byte ``cp.async``, ``no_topk`` the scoring and top-k of each pass.
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ B3_SWITCHES = {
     "empty": ("  const int h = blockIdx.y / ng, g0 = blockIdx.y % ng * GM,",
               "  if (a.D > 0) return;\n"
               "  const int h = blockIdx.y / ng, g0 = blockIdx.y % ng * GM,"),
-    "no_splits": ("    split_partial<KV, GM>(a, b, h, G, t0, n,",
-                  "    if (a.D < 0) split_partial<KV, GM>(a, b, h, G, t0, n,"),
+    "no_splits": ("    split_partial<KV, GM, CPL>(a, b, h, G, t0, n,",
+                  "    if (a.D < 0) split_partial<KV, GM, CPL>(a, b, h, G, t0, "
+                  "n,"),
     "no_merge": ("  merge(a, a.o + row0, G,",
                  "  if (a.D < 0) merge(a, a.o + row0, G,"),
     "no_load": ("      out[u] = __ldg(reinterpret_cast<const uint4*>"
@@ -55,9 +58,23 @@ B4_SWITCHES = {
                 '%2;\\n" ::"r"(d),',
                 '  asm volatile("" ::"r"(d),'),
 }
+# B1 and B2 share their scan (mips_tc.cuh), so one set of switches serves
+# both: each copy of the header is compiled with mips_topk.cu and with
+# mips_topk_int8.cu
+MIPS_SWITCHES = {
+    "empty": ("  const int tile = blockIdx.x;\n",
+              "  if (p.D > 0) return;\n  const int tile = blockIdx.x;\n"),
+    "no_mma": ("    if (nmt > 0)\n", "    if (nmt > 0 && p.D < 0)\n"),
+    "no_load": ("    cp_async<16>(dst, nbytes ? src : base, nbytes);",
+                '    asm volatile("" ::"r"(nbytes));'),
+    "no_topk": ("    if (ch != nch - 1) continue;",
+                "    if (ch != nch - 1 || p.D > 0) continue;"),
+}
 B3_ROWS = ["base", "no_merge", "no_load", "no_splits", "empty"]
 B4_ROWS = ["base", "no_merge", "no_compute+no_merge",
            "no_load+no_compute+no_merge"]
+MIPS_ROWS = ["base", "no_topk", "no_mma+no_topk", "no_load+no_mma+no_topk",
+             "empty"]
 
 
 def patched(src: str, switches: dict, row: str) -> str:
@@ -71,24 +88,29 @@ def patched(src: str, switches: dict, row: str) -> str:
     return src
 
 
-def build(ops, stem: str, source: str, switches: dict, rows, argtypes,
-          symbol: str):
-    """One library per row, all nvcc processes started together."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build(ops, target: str, switches: dict, rows, argtypes, symbol: str,
+          patch: str = None):
+    """One library per row, all nvcc processes started together: the
+    sources of ``csrc`` copied into a directory of the row's own, with
+    ``patch`` (default: ``target``) switched, and ``target`` compiled."""
+    patch = patch or target
     procs = {}
     for row in rows:
-        tag = row.replace("+", "_")
-        cu = OUT / f"{stem}_{tag}.cu"
-        cu.write_text(patched(source, switches, row))
-        lib = OUT / f"lib{stem}_{tag}.so"
+        d = OUT / f"{Path(target).stem}_{row.replace('+', '_')}"
+        d.mkdir(parents=True, exist_ok=True)
+        for f in CSRC.iterdir():
+            text = f.read_text()
+            (d / f.name).write_text(patched(text, switches, row)
+                                    if f.name == patch else text)
+        lib = d / f"lib{symbol}.so"
         procs[row] = (subprocess.Popen(
-            [ops._nvcc(), *ops.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [ops._nvcc(), *ops.NVCC_FLAGS, "-o", str(lib), str(d / target)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for row, (proc, lib) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for {stem} {row}:\n{log}")
+            raise SystemExit(f"nvcc failed for {target} {row}:\n{log}")
         cdll = ctypes.CDLL(str(lib))
         fn = getattr(cdll, symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -117,19 +139,40 @@ def main():
         return 2
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mips_topk as mt
+    from repro_torch.kernels import mips_topk_int8 as mt8
     from repro_torch.kernels import ops
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}; device ms per call, profiler")
-    b3 = build(ops, "decode_attention",
-               (CSRC / "decode_attention.cu").read_text(), B3_SWITCHES,
-               B3_ROWS, da.ARGTYPES, "decode_attention")
-    b4 = build(ops, "flash_attention",
-               (CSRC / "flash_attention.cu").read_text(), B4_SWITCHES,
-               B4_ROWS, fa.ARGTYPES, "flash_attention")
+    b3 = build(ops, "decode_attention.cu", B3_SWITCHES, B3_ROWS,
+               da.ARGTYPES, "decode_attention")
+    b4 = build(ops, "flash_attention.cu", B4_SWITCHES, B4_ROWS, fa.ARGTYPES,
+               "flash_attention")
+    b1 = build(ops, "mips_topk.cu", MIPS_SWITCHES, MIPS_ROWS, mt.ARGTYPES,
+               "mips_topk", "mips_tc.cuh")
+    b2 = build(ops, "mips_topk_int8.cu", MIPS_SWITCHES, MIPS_ROWS,
+               mt8.ARGTYPES, "mips_topk_int8", "mips_tc.cuh")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+
+    # the paper's store at the serving shape: Q 32, 150,000 x 384, k 1,
+    # tile 512; the store is larger than L2, so no flush between calls
+    Q, N, D = 32, 150000, 384
+    q = torch.randn((Q, D), generator=g, device=dev)
+    for dt in (torch.float16, torch.float32):
+        x = torch.randn((N, D), generator=g, device=dev).to(dt)
+        cells = [f"{row} {device_ms(torch, lambda lib=lib: mt.mips_topk_tiles_cuda(lib, q, x, 1, 512), 'mips_tc_kernel', 50):.4f}"
+                 for row, lib in b1.items()]
+        print(f"B1 Q={Q} N={N} D={D} k=1 tile 512 {dt}: " + " | ".join(cells))
+    del x
+    q8, x8 = (torch.randint(-127, 128, (n, D), generator=g, device=dev,
+                            dtype=torch.int8) for n in (Q, N))
+    qs, xs = (torch.rand((n,), generator=g, device=dev) for n in (Q, N))
+    cells = [f"{row} {device_ms(torch, lambda lib=lib: mt8.mips_topk_int8_tiles_cuda(lib, q8, qs, x8, xs, 1, 512), 'mips_tc_kernel', 50):.4f}"
+             for row, lib in b2.items()]
+    print(f"B2 Q={Q} N={N} D={D} k=1 tile 512 int8: " + " | ".join(cells))
 
     T, Hq, Hkv, D, ns = 160, 16, 8, 128, 8
     for B in (4, 1):
