@@ -14,7 +14,8 @@ result line is printed only when every phase passed:
    memory and spills;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the serving shapes plus ragged (bf16, f32, head dims 192 and 256)
-   cases, timed from the profiler (median, min and max of three runs; a
+   cases and the LM engine's (phase 7: B3 over a 512-row f32 cache with
+   lengths past it, B4 prefill at S = T = 512), timed from the profiler (median, min and max of three runs; a
    kernel the trace does not name fails the run) and with CUDA events
    beside the plain version and a one-call PyTorch yardstick; the two
    search kernels' launch configuration and ptxas report; B3 as
@@ -31,10 +32,21 @@ result line is printed only when every phase passed:
    ``index="auto"``, which picks the IVF tier at 150,000 rows, fits it and
    persists the fit; a second open loads the fit. Hits, then the stream,
    are served with MiniLM query encoding on B4 (non-causal) and misses
-   prefilled on B4 (causal) and decoded on B3.
+   prefilled on B4 (causal) and decoded on B3;
+7. build — the offline precompute through ``StorInfer.build``: (a) the
+   LLM-driven build, ``TorchLM`` on qwen3-1.7b at full width (phase 4's
+   weights, a 512-token engine: prompts prefilled on B4, queries sampled
+   and answers decoded on B3); (b) the reference launcher's default build
+   (oracle LM, hash embedder, 8,192 pairs over 200 docs) with the dedup
+   index crossing into IVF on the card, opened and queried on B1; (c) an
+   int8 build killed halfway and resumed, byte-identical to an
+   uninterrupted one, queried on B2; (d) the same hash build with the
+   dedup index on the card and on the CPU, byte-identical; (e) a MiniLM
+   build (the encoder on B4, non-causal).
 
 The kernels' launch counters are set to 0 just before each serving run
-and read just after it: every kernel of the path must have run there. The
+and each build and read just after it: every kernel of the path must have
+run there. The
 last lines are one JSON line of per-kernel numbers, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -76,6 +88,18 @@ N_STORE = 150000             # the paper's store size (pairs)
 # the two groups, so the unanticipated phrasings miss and the stored ones
 # hit.
 S_TH_MINILM = 0.999
+# phase 7: the paper's generation time on an H100 (s per pair) and sizes
+PAPER_S_PER_PAIR = 0.3
+N_BUILD_LLM = 8              # 7a: pairs generated by the LLM
+N_BUILD = 8192               # 7b: the launcher's default build, cut
+N_BUILD_RESUME = 1024        # 7c
+N_BUILD_DEVICE = 2048        # 7d
+N_BUILD_MINILM = 512         # 7e
+# A build dedups on its device (a torch f32 product of the index's shape at
+# that wave); the invariant is checked afterwards with one product over all
+# rows, which sums in another order: the two may differ by a few ulps of
+# f32 at |s| <= 1.
+TOL_SIM_ORDER = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -410,6 +434,30 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
                 f"wide D={Dw} f32 cache", Dw)
         b3_case(157, rag, torch.bfloat16, ns, TOL_DECODE_BF16,
                 f"wide D={Dw} ragged T=157 bf16 cache", Dw)
+    # the LM engine's session (TorchLM in phase 7): B 1, an f32 cache of
+    # T = 512, lengths up to and past T - 1 (a decode past max_len passes
+    # lengths of T and more; the kernel clamps them to T - 1)
+    errs = []
+    for L in (300, 511, 512, 700):
+        lm_len = torch.full((1,), L, dtype=torch.int32, device=dev)
+        q1 = torch.randn((1, Hq, Dh), generator=g, device=dev)
+        k1, v1 = (torch.randn((1, 512, Hkv, Dh), generator=g, device=dev)
+                  for _ in range(2))
+        got = ops.decode_attention(q1, k1, v1, lm_len, ns)
+        want = da.decode_attention_plain(q1, k1, v1, lm_len.clamp(max=511))
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=TOL_DECODE_F32,
+                             atol=TOL_DECODE_F32),
+              f"B3 LM engine T=512 length {L}: differs from plain "
+              f"({errs[-1]})")
+    len300 = torch.full((1,), 300, dtype=torch.int32, device=dev)
+    lm_ms, lm_call = timed(torch, lambda: ops.decode_attention(
+        q1, k1, v1, len300, ns), 200, None, "decode_attention_kernel")
+    print(f"B3 LM engine (B 1, f32 cache T=512, lengths 300/511/512/700): ok "
+          f"max_abs_err={max(errs):.3e} (tol {TOL_DECODE_F32}); length 300: "
+          f"device {spread(lm_ms)} ms, per call with host gaps "
+          f"{lm_call:.4f} ms")
     ms, call = timed(torch, lambda: ops.decode_attention(
         qq, kk, vv, main_len, ns), 200, None, "decode_attention_kernel")
     plain, plain_call = timed(torch, lambda: da.combine_splits(
@@ -486,6 +534,9 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
     _, real_in = b4_case(real, True, torch.float32,
                          f"(b) prefill at a real prompt's S=T={prompt_len} "
                          "f32 causal")
+    _, lm_in = b4_case((1, 512, 512, 16, 8, 128), True, torch.float32,
+                       "(c) the LM engine's prefill at its max_len, S=T=512 "
+                       "f32 causal")
     b4_case((3, 100, 100, 12, 4, 128), True, torch.float32,
             "ragged B=3 S=T=100 Hq=12 Hkv=4 D=128 f32 causal")
     b4_case((2, 70, 130, 6, 2, 96), False, torch.float32,
@@ -508,7 +559,8 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
                      bound_by=b_by, library_ms=lib, calls=calls,
                      shape="(a) B=256 S=T=64 H=6 D=64 f32 non-causal"))
     for label, (qq, kk, vv) in (("(b) S=T=160", pre_in),
-                                (f"(b) S=T={prompt_len}", real_in)):
+                                (f"(b) S=T={prompt_len}", real_in),
+                                ("(c) S=T=512", lm_in)):
         t = b4_timing(qq, kk, vv, True, 200)
         print(f"timing flash_attention {label} f32 causal (device time per "
               f"call, profiler, median (min-max) of 3): kernel "
@@ -935,6 +987,308 @@ def phase_minilm(torch, np, args, card, corpus, engine, dev):
             "minilm": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the offline build (StorInfer.build, PrecomputePipeline, TorchLM)
+# ---------------------------------------------------------------------------
+
+
+def same_store(a, b):
+    """Names of the files of two store directories that differ, byte for
+    byte; the manifest compared without the build clock (``elapsed``)."""
+    from repro_torch.core.precompute import STATE_KEY
+
+    def manifest(p):
+        man = json.loads((p / "manifest.json").read_text())
+        man.get("extra", {}).get(STATE_KEY, {}).pop("elapsed", None)
+        return man
+
+    names = sorted(p.name for p in a.iterdir())
+    if names != sorted(p.name for p in b.iterdir()):
+        return ["<file lists>"]
+    return [f for f in names
+            if (manifest(a) != manifest(b) if f == "manifest.json"
+                else (a / f).read_bytes() != (b / f).read_bytes())]
+
+
+def check_invariant(torch, np, store, s_th, dev, label):
+    """No stored row at or above ``s_th`` against an EARLIER one, over the
+    stored (dtype round-tripped) embeddings, in one f32 product on
+    ``dev``."""
+    n = store.count
+    e = torch.from_numpy(np.ascontiguousarray(
+        store.embeddings().take(np.arange(n)), np.float32)).to(dev)
+    g = torch.tril(e @ e.T, diagonal=-1)
+    g = g.masked_fill(torch.triu(torch.ones_like(g, dtype=torch.bool)),
+                      -float("inf"))
+    top = float(g.max()) if n > 1 else -float("inf")
+    n_at = int((g >= s_th).sum())
+    check(top < s_th + TOL_SIM_ORDER,
+          f"{label}: a pair was accepted at {top:.7f} >= s_th_gen {s_th} "
+          "against an earlier one")
+    print(f"{label}: dedup invariant holds: max similarity to an earlier "
+          f"row {top:.7f} < s_th_gen {s_th} ({n_at} pairs within "
+          f"{TOL_SIM_ORDER:g} at or above it, f32 summation order)")
+
+
+def wave_clock():
+    """An ``on_wave`` callback that stamps each wave; returns (callback,
+    per-wave seconds)."""
+    stamps = [time.perf_counter()]
+
+    def on_wave(waves, generated, discarded, mode):
+        stamps.append(time.perf_counter())
+
+    return on_wave, lambda: [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def phase_build_llm(torch, np, args, card, corpus, engine, work):
+    """7a: the LLM-driven build. TorchLM over phase 4's weights (no copy)
+    at the generator's context (GenCfg.max_ctx = 512)."""
+    from repro_torch.api import StorInfer, SystemCfg
+    from repro_torch.core.generator import GenCfg
+    from repro_torch.core.precompute import STATE_KEY, PrecomputeCfg
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.lm import TorchLM
+
+    kb, tok = corpus[0], corpus[2]
+    label = "build 7a (LLM)"
+    gen = GenCfg()
+    lm_engine = Engine(engine.cfg, engine.params, engine.tok,
+                       max_len=gen.max_ctx, chunk=8)
+    check(lm_engine.params is engine.params, f"{label}: weights copied")
+    lm = TorchLM(lm_engine)
+    prompt_lens, queries = [], []
+    generate, generate_query = lm_engine.generate, lm.generate_query
+
+    def counted_generate(prompt, **kw):
+        prompt_lens.append(len(lm_engine.tok.encode(prompt, bos=True)))
+        return generate(prompt, **kw)
+
+    def recorded_query(*a):
+        queries.append(generate_query(*a))
+        return queries[-1]
+
+    lm_engine.generate, lm.generate_query = counted_generate, recorded_query
+    cfg = SystemCfg(index="flat", device=str(engine.device), gen=gen,
+                    precompute=PrecomputeCfg(wave=4, max_attempts_factor=2))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    si = StorInfer.build(kb, cfg, work / "llm", n_pairs=N_BUILD_LLM, lm=lm,
+                         tokenizer=tok)
+    with si:
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = si.build_stats
+        counts = ops.launch_counts()
+        state = si.store.manifest_extra[STATE_KEY]
+        temps, attempts = state["temps"], state["attempts"]
+        # a wave that reaches the target drops its tail: those candidates
+        # count as attempts, neither accepted nor discarded
+        check(attempts == len(queries) and si.store.count == st.generated,
+              f"{label}: {attempts} attempts, {len(queries)} queries")
+        print(f"{label}: {attempts} attempts, {st.generated} accepted, "
+              f"{st.discarded} discarded (cap {N_BUILD_LLM * 2 + 100}); "
+              f"{sum(q == '' for q in queries)} of {len(queries)} generated "
+              f"queries empty; final temperatures per chunk "
+              f"{sorted(set(round(t, 2) for t in temps))} (max "
+              f"{st.temp_final:.2f})")
+        print(f"{label}: {st.run_seconds / attempts:.3f} s per attempted "
+              f"pair, {st.run_seconds / max(st.generated, 1):.3f} s per "
+              f"accepted pair (paper: {PAPER_S_PER_PAIR} s per pair on an "
+              f"H100) on {card}; build {st.run_seconds:.2f} s, with the "
+              f"open {wall:.2f} s")
+        print(f"{label}: {len(prompt_lens)} prompts through the 512-token "
+              f"engine, {min(prompt_lens)}-{max(prompt_lens)} tokens; "
+              f"launches {counts}")
+        check(counts["flash_attention"] > 0 and counts["decode_attention"] > 0,
+              f"{label}: prefill or decode did not run on B4/B3 ({counts})")
+        check_invariant(torch, np, si.store, gen.s_th_gen, engine.device,
+                        label)
+    with StorInfer.open(work / "llm", SystemCfg(index="flat",
+                                                device=str(engine.device))) \
+            as si2:
+        check(si2.store.count == st.generated
+              and si2.store.get_pair(0)[0] == queries[0],
+              f"{label}: the store did not reopen")
+    print(f"{label}: store reopened, {st.generated} pairs")
+    return counts
+
+
+def phase_build_default(torch, np, args, card, work, dev):
+    """7b: the reference launcher's default build (oracle LM, hash
+    embedder, fp16 store, index="auto"), the dedup index crossing into IVF
+    on the card at 2,048, 4,096 and 8,192 rows."""
+    from repro_torch.api import StorInfer, SystemCfg, tier_of
+    from repro_torch.core.kb import build_kb
+    from repro_torch.core.precompute import PrecomputeCfg
+    from repro_torch.kernels import ops
+
+    label = "build 7b (launcher default)"
+    kb = build_kb("squad", seed=args.seed, n_docs=200)
+    cfg = SystemCfg(embedder="hash", index="auto", emb_dtype="float16",
+                    device=str(dev), precompute=PrecomputeCfg(
+                        wave=32, checkpoint_every=64, flat_max_rows=2048))
+    on_wave, wave_s = wave_clock()
+    ops.reset_launch_counts()
+    si = StorInfer.build(kb, cfg, work / "default", n_pairs=N_BUILD,
+                         seed=args.seed, resume=False, on_wave=on_wave)
+    with si:
+        st = si.build_stats
+        ws = sorted(wave_s())
+        sb = si.store.storage_bytes()
+        print(f"{label}: {si.store.count} pairs in {st.run_seconds:.2f} s, "
+              f"{st.pairs_per_sec:.1f} pairs/s, {st.discarded} discarded, "
+              f"{st.waves} waves (max {ws[-1] * 1e3:.2f} ms, median "
+              f"{ws[len(ws) // 2] * 1e3:.2f} ms); dedup index ended "
+              f"{st.index_mode} after {st.refits} refits (k-means + "
+              "reassignment: " + ", ".join(f"{t * 1e3:.1f} ms"
+                                           for t in st.refit_seconds)
+              + f"); store {sb['total_bytes'] / 1e6:.2f} MB; serving index "
+              f"{tier_of(si.index)} in {si.index_seconds:.3f} s on {card}")
+        check(si.store.count == N_BUILD and st.index_mode == "ivf"
+              and st.refits == 3 and tier_of(si.index) == "flat",
+              f"{label}: rows {si.store.count}, dedup {st.index_mode}, "
+              f"refits {st.refits}, serving {tier_of(si.index)}")
+        rows = np.random.default_rng(args.seed).choice(N_BUILD, 32,
+                                                       replace=False)
+        pairs = [si.store.get_pair(int(r)) for r in rows]
+        res = si.query_batch([q for q, _ in pairs], max_new=1)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(all(r.hit and r.matched_query == q and r.response == a
+                  for r, (q, a) in zip(res, pairs)),
+              f"{label}: a stored query did not hit its own row")
+        check(counts["mips_topk"] > 0, f"{label}: B1 not launched {counts}")
+        print(f"{label}: 32 stored queries hit their rows through "
+              f"query_batch; launches {counts}")
+    return counts
+
+
+def phase_build_resume(torch, np, args, work, dev):
+    """7c: an int8 build killed about halfway and resumed, against an
+    uninterrupted one: every file equal. The dedup index crosses into IVF
+    (flat_max_rows 256); the resumed build rebuilds it shard by shard."""
+    from repro_torch.api import StorInfer, SystemCfg
+    from repro_torch.core.kb import build_kb
+    from repro_torch.core.precompute import BuildKilled, PrecomputeCfg
+    from repro_torch.kernels import ops
+
+    label = "build 7c (kill/resume, int8)"
+    kb = build_kb("squad", seed=args.seed, n_docs=200)
+    cfg = SystemCfg(index="auto", quantize=True, device=str(dev),
+                    shard_rows=256, precompute=PrecomputeCfg(
+                        wave=32, checkpoint_every=4, flat_max_rows=256))
+    ops.reset_launch_counts()
+    with StorInfer.build(kb, cfg, work / "whole", n_pairs=N_BUILD_RESUME,
+                         seed=args.seed) as si:
+        waves = si.build_stats.waves
+        check(si.build_stats.index_mode == "ivf",
+              f"{label}: the dedup index stayed {si.build_stats.index_mode}")
+    kill = waves // 2 + 1
+    try:
+        StorInfer.build(kb, cfg, work / "resumed", n_pairs=N_BUILD_RESUME,
+                        seed=args.seed, _kill_after_waves=kill)
+        raise SmokeFailure(f"{label}: the kill hook did not fire")
+    except BuildKilled:
+        pass
+    with StorInfer.build(kb, cfg, work / "resumed", n_pairs=N_BUILD_RESUME,
+                         seed=args.seed) as si:
+        st = si.build_stats
+        bad = same_store(work / "whole", work / "resumed")
+        print(f"{label}: {waves} waves uninterrupted; killed after {kill}, "
+              f"resumed from {st.resumed_rows} rows ({st.refits} refits in "
+              f"the resumed run); files differing: {bad or 'none'}")
+        check(not bad and 0 < st.resumed_rows < N_BUILD_RESUME,
+              f"{label}: the resumed store differs ({bad})")
+        pairs = [si.store.get_pair(r) for r in range(0, N_BUILD_RESUME, 32)]
+        res = si.query_batch([q for q, _ in pairs], max_new=1)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(si.index.dev.quantized and all(
+            r.hit and r.response == a for r, (_, a) in zip(res, pairs)),
+            f"{label}: the int8 store did not serve its rows")
+        check(counts["mips_topk_int8"] > 0,
+              f"{label}: B2 not launched {counts}")
+        print(f"{label}: {len(pairs)} stored queries hit on the int8 store; "
+              f"launches {counts}")
+    return counts
+
+
+def phase_build_devices(torch, np, args, work, dev):
+    """7d: the dedup decisions do not depend on where the product ran: a
+    flat-mode hash build with the index on the card and on the CPU."""
+    from repro_torch.api import StorInfer, SystemCfg
+    from repro_torch.core.kb import build_kb
+    from repro_torch.core.precompute import PrecomputeCfg
+
+    label = "build 7d (device independence)"
+    kb = build_kb("squad", seed=args.seed, n_docs=200)
+    secs = {}
+    for d in (str(dev), "cpu"):
+        cfg = SystemCfg(index="none", device=d, precompute=PrecomputeCfg(
+            wave=32, flat_max_rows=4 * N_BUILD_DEVICE))
+        with StorInfer.build(kb, cfg, work / f"dev_{d}",
+                             n_pairs=N_BUILD_DEVICE, seed=args.seed) as si:
+            check(si.build_stats.index_mode == "flat",
+                  f"{label}: left flat mode")
+            secs[d] = si.build_stats.run_seconds
+    bad = same_store(work / f"dev_{dev}", work / "dev_cpu")
+    print(f"{label}: {N_BUILD_DEVICE} pairs, dedup index on {dev} "
+          f"{secs[str(dev)]:.2f} s, on the CPU {secs['cpu']:.2f} s; files "
+          f"differing: {bad or 'none'}")
+    check(not bad, f"{label}: the stores differ ({bad})")
+
+
+def phase_build_minilm(torch, np, args, corpus, work, dev):
+    """7e: a build embedded by the port's MiniLM encoder (B4 non-causal).
+    Random MiniLM weights score any two texts near 1, hence the
+    threshold."""
+    from repro_torch.api import StorInfer, SystemCfg
+    from repro_torch.core.generator import GenCfg
+    from repro_torch.core.precompute import PrecomputeCfg
+    from repro_torch.kernels import ops
+
+    kb, tok = corpus[0], corpus[2]
+    label = "build 7e (MiniLM)"
+    gen = GenCfg(s_th_gen=0.9999)
+    cfg = SystemCfg(embedder="minilm", embedder_kw={"seed": args.seed},
+                    index="none", device=str(dev), gen=gen,
+                    precompute=PrecomputeCfg(wave=32))
+    ops.reset_launch_counts()
+    with StorInfer.build(kb, cfg, work / "minilm", n_pairs=N_BUILD_MINILM,
+                         tokenizer=tok, seed=args.seed) as si:
+        torch.cuda.synchronize()
+        st = si.build_stats
+        counts = ops.launch_counts()
+        print(f"{label}: {si.store.count} pairs, {st.discarded} discarded "
+              f"at s_th_gen {gen.s_th_gen}, {st.pairs_per_sec:.1f} pairs/s; "
+              f"launches {counts}")
+        check(counts["flash_attention"] > 0,
+              f"{label}: the encoder did not run on B4 ({counts})")
+        check_invariant(torch, np, si.store, gen.s_th_gen, dev, label)
+    return counts
+
+
+def phase_build(torch, np, args, card, corpus, engine, dev):
+    work = ROOT / "build" / "chip_smoke" / "build"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+    t0 = time.perf_counter()
+    out["build llm"] = phase_build_llm(torch, np, args, card, corpus, engine,
+                                       work)
+    out["build default"] = phase_build_default(torch, np, args, card, work,
+                                               dev)
+    out["build resume"] = phase_build_resume(torch, np, args, work, dev)
+    phase_build_devices(torch, np, args, work, dev)
+    out["build minilm"] = phase_build_minilm(torch, np, args, corpus, work,
+                                             dev)
+    print(f"build: phase 7 took {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -980,6 +1334,9 @@ def main():
 
     # -- phase 6: the minilm slice (IVF, MiniLM on B4, prefill on B4) ---------
     counts.update(phase_minilm(torch, np, args, card, corpus, engine, dev))
+
+    # -- phase 7: the offline build -------------------------------------------
+    counts.update(phase_build(torch, np, args, card, corpus, engine, dev))
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -14,7 +14,8 @@ _API_EXPORTS = (
     "StorInfer", "SystemCfg", "EngineCfg", "SystemStats",
     "QueryResult", "RuntimeStats",
     "EmbedderProtocol", "IndexProtocol", "register_embedder",
-    "register_index", "make_embedder", "make_index", "tier_of",
+    "register_index", "make_embedder", "make_index", "make_pipeline",
+    "tier_of",
 )
 
 __all__ = list(_API_EXPORTS)

@@ -1,21 +1,29 @@
 """One front door: the ``StorInfer`` system facade of the PyTorch port
-(port of the JAX package's ``api.py``, serving side).
+(port of the JAX package's ``api.py``).
 
-    from repro_torch import StorInfer, SystemCfg, EngineCfg
+    from repro_torch import StorInfer, SystemCfg
+    from repro_torch.core.kb import build_kb
 
-    cfg = SystemCfg(index="flat", engine=EngineCfg(smoke=False))
-    with StorInfer.open("runs/demo", cfg) as si:       # on cuda
+    kb = build_kb("squad", n_docs=25)
+    with StorInfer.build(kb, SystemCfg(), "runs/demo", n_pairs=1500) as si:
         print(si.query_batch(["what is the height of aurora bridge?"]))
 
 Everything runs on ``cfg.device`` ("cuda" unless the caller passes
-"cpu"): the device-resident index, a neural embedder and the fallback
-engine. Underneath, the duck types are checked ``Protocol``s
-(``EmbedderProtocol``, ``IndexProtocol``) and components are resolved
+"cpu"): the offline build's dedup index, the device-resident serving
+index, a neural embedder and the fallback engine. Underneath, the duck
+types are checked ``Protocol``s (``EmbedderProtocol``,
+``IndexProtocol``) and components are resolved
 from string registries (``EMBEDDERS``: ``"hash"``, ``"minilm"``;
 ``INDEXES``: ``"auto"``, ``"flat"``, ``"ivf"``, ``"none"``).
 
 Lifecycle:
 
+    StorInfer.build(source, cfg, path, n_pairs=...)
+                                     offline: resumable wave-batched
+                                     generation into ``path`` (wraps
+                                     ``PrecomputePipeline``; kill it and
+                                     rerun — it continues from the manifest
+                                     checkpoint), then ``open``s the store
     StorInfer.open(path, cfg)        online: store + index (a persisted
                                      IVF fit loads instead of refitting)
                                      (+ engine when ``cfg.engine`` is set,
@@ -24,14 +32,14 @@ Lifecycle:
     .serve() / .submit()             stage-decoupled serving pipeline
     .stats() / .close()              accounting, teardown
 
-``StorInfer.build`` (the offline precompute) is not ported yet: it needs
-``PrecomputePipeline`` and ``IncrementalIndex`` (ROADMAP A6). A store built
-by the JAX package opens here unchanged (same on-disk format).
+A store built by either package opens in the other unchanged (same
+on-disk format), and a checkpointed build resumes in either.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from concurrent.futures import Future
 from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence,
                     Tuple, Union, runtime_checkable)
@@ -39,18 +47,24 @@ from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence,
 import numpy as np
 
 from repro_torch.core.embedder import HashEmbedder, MiniLMEncoder
+from repro_torch.core.generator import (GenCfg, QueryLM, SyntheticOracleLM,
+                                        chunk_key)
 from repro_torch.core.index import (FlatIndex, IVFIndex, auto_index,
-                                    cached_device_store, device_store_for)
+                                    cached_device_store, device_store_for,
+                                    exact_fp32)
+from repro_torch.core.precompute import (PrecomputeCfg, PrecomputePipeline,
+                                         PrecomputeStats)
 from repro_torch.core.runtime import (BatchedRuntime, BatchedRuntimeCfg,
                                       QueryResult, RuntimeCfg, RuntimeStats,
                                       StorInferRuntime)
-from repro_torch.core.store import PrecomputedStore
+from repro_torch.core.store import SHARD_ROWS, PrecomputedStore
 from repro_torch.core.tokenizer import Tokenizer
 
 __all__ = [
     "EmbedderProtocol", "IndexProtocol", "register_embedder",
-    "register_index", "make_embedder", "make_index", "tier_of", "EngineCfg",
-    "SystemCfg", "SystemStats", "StorInfer", "QueryResult", "RuntimeStats",
+    "register_index", "make_embedder", "make_index", "make_pipeline",
+    "tier_of", "EngineCfg", "SystemCfg", "SystemStats", "StorInfer",
+    "QueryResult", "RuntimeStats",
 ]
 
 
@@ -212,7 +226,8 @@ class SystemCfg:
     satisfying the protocols); ``engine=None`` runs search-only (misses
     return empty responses); ``s_th_run`` overrides the runtime threshold
     on BOTH the sequential and batched paths; ``device`` places the
-    index, a neural embedder and the engine.
+    build's dedup index, the serving index, a neural embedder and the
+    engine.
     """
     embedder: Union[str, EmbedderProtocol] = "hash"
     embedder_kw: dict = dataclasses.field(default_factory=dict)
@@ -227,6 +242,15 @@ class SystemCfg:
     cache_index: bool = True           # persist/load the IVF fit in the
                                        # store root (index_ivf.npz)
     device: str = "cuda"
+    gen: GenCfg = dataclasses.field(default_factory=GenCfg)
+    precompute: PrecomputeCfg = dataclasses.field(
+        default_factory=PrecomputeCfg)
+    emb_dtype: str = "float16"         # store embedding dtype
+    quantize: bool = False             # convenience: emb_dtype="int8"
+    #                                    (symmetric per-row int8 shards +
+    #                                    scales, served by the int8 MIPS
+    #                                    kernel)
+    shard_rows: int = SHARD_ROWS       # store shard size (rows)
 
     def __post_init__(self):
         if self.s_th_run is not None:
@@ -237,6 +261,10 @@ class SystemCfg:
         if self.decode_slots is not None:
             self.batched = dataclasses.replace(
                 self.batched, decode_slots=self.decode_slots)
+        if self.quantize:
+            self.emb_dtype = "int8"
+        elif self.emb_dtype == "int8":
+            self.quantize = True
 
 
 @dataclasses.dataclass
@@ -258,6 +286,34 @@ class SystemStats:
 # ---------------------------------------------------------------------------
 
 
+def make_pipeline(cfg: SystemCfg, lm: QueryLM,
+                  tokenizer) -> PrecomputePipeline:
+    """The offline half on its own (store-free benchmarking, custom build
+    loops), on ``cfg.device``; ``StorInfer.build`` uses this
+    internally."""
+    emb = make_embedder(cfg.embedder, tokenizer=tokenizer,
+                        **{"device": cfg.device, **cfg.embedder_kw})
+    return PrecomputePipeline(lm, emb, tokenizer, cfg.gen, cfg.precompute,
+                              device=cfg.device)
+
+
+def _resolve_source(source, lm, tokenizer):
+    """``source`` is a KB (chunks + oracle LM + tokenizer derived) or a
+    raw chunk sequence (``lm=`` required)."""
+    if hasattr(source, "docs"):
+        texts = [d.text() for d in source.docs]
+        chunks = [chunk_key(d.doc_id, d.text()) for d in source.docs]
+        lm = lm if lm is not None else SyntheticOracleLM(source)
+        tokenizer = tokenizer or Tokenizer.from_texts(texts)
+    else:
+        chunks = list(source)
+        if lm is None:
+            raise ValueError("building from raw chunks needs lm= "
+                             "(a QueryLM); a KB source derives its own")
+        tokenizer = tokenizer or Tokenizer.from_texts(chunks)
+    return chunks, lm, tokenizer
+
+
 def _tokenizer_from_store(store, sample: int = 512):
     """Vocab for an engine opened over a bare store: built from a sample
     of the stored pairs (the store IS the corpus at serve time)."""
@@ -266,16 +322,6 @@ def _tokenizer_from_store(store, sample: int = 512):
         q, r = store.get_pair(row)
         texts += [q, r]
     return Tokenizer.from_texts(texts or ["empty"])
-
-
-def _exact_fp32():
-    """Keep CUDA matmuls and convolutions in full f32, as the reference
-    computes: TF32 keeps ~3 decimal digits, which would move the engine's
-    logits. Set once, where the facade (``StorInfer.__init__``, which
-    ``open`` calls) enters the CUDA path."""
-    import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _build_engine(ecfg: EngineCfg, tokenizer, device):
@@ -305,19 +351,23 @@ class StorInfer:
     (+ optional engine), with the sequential reference runtime and the
     batched serving runtime sharing that one index.
 
-    Construct via ``StorInfer.open`` (serve an existing store) or directly
-    from ready components (protocol-checked)."""
+    Construct via ``StorInfer.build`` (offline: generate into a store,
+    then serve it), ``StorInfer.open`` (serve an existing store) or
+    directly from ready components (protocol-checked)."""
 
     def __init__(self, store: PrecomputedStore, embedder, index=None, *,
-                 engine=None, cfg: SystemCfg = None):
+                 engine=None, cfg: SystemCfg = None,
+                 build_stats: Optional[PrecomputeStats] = None):
         self.store = store
         self.embedder = make_embedder(embedder)   # validates the protocol
         self.index = make_index(index) if index is not None else None
         self.engine = engine
         self.cfg = cfg or SystemCfg()
+        self.build_stats = build_stats
+        self.index_seconds = 0.0    # wall-clock of the index build/load
         if str(self.cfg.device).startswith("cuda") or getattr(
                 getattr(engine, "device", None), "type", None) == "cuda":
-            _exact_fp32()
+            exact_fp32()
         self._seq_stats = RuntimeStats()
         self._seq = self._batched = None
         if self.index is not None:
@@ -340,23 +390,74 @@ class StorInfer:
 
     # -- lifecycle ------------------------------------------------------------
     @classmethod
+    def build(cls, source, cfg: SystemCfg = None, path=None, *,
+              n_pairs: int, lm: QueryLM = None, tokenizer=None,
+              seed: int = 0, resume: bool = True, on_wave=None,
+              _kill_after_waves: Optional[int] = None) -> "StorInfer":
+        """Offline build (resumable) on ``cfg.device``, then open the
+        serving side.
+
+        ``source`` is a KB or a sequence of knowledge-chunk strings.
+        If ``path`` holds a checkpointed build, generation CONTINUES from
+        it (``resume=False`` refuses); kill + rerun yields a store
+        byte-identical to an uninterrupted run (see core/precompute.py).
+        A crash mid-build releases the store handle without committing
+        anything past the last checkpoint.
+        """
+        cfg = cfg or SystemCfg()
+        if path is None:
+            raise ValueError("build needs a store path")
+        if str(cfg.device).startswith("cuda"):
+            exact_fp32()
+        chunks, lm, tokenizer = _resolve_source(source, lm, tokenizer)
+        pipe = make_pipeline(cfg, lm, tokenizer)
+        try:
+            store = PrecomputedStore.open_(path)
+        except FileNotFoundError:
+            store = PrecomputedStore(path, dim=pipe.embedder.dim,
+                                     emb_dtype=cfg.emb_dtype,
+                                     shard_rows=cfg.shard_rows)
+        try:
+            _, _, _, stats = pipe.run(
+                chunks, n_pairs, store=store, seed=seed, resume=resume,
+                on_wave=on_wave, _kill_after_waves=_kill_after_waves)
+        except BaseException:
+            store.abort()      # crash semantics: keep the last checkpoint
+            raise
+        return cls._from_store(store, cfg, tokenizer=tokenizer,
+                               embedder=pipe.embedder, build_stats=stats)
+
+    @classmethod
     def open(cls, path, cfg: SystemCfg = None, *, tokenizer=None,
              engine=None) -> "StorInfer":
         """Open an existing store for serving: memory-mapped shards, the
         index on ``cfg.device`` (with ``cfg.cache_index`` a persisted IVF
         fit in the store root loads instead of refitting), and the engine
         (``engine=``, or built from ``cfg.engine`` when set)."""
-        cfg = cfg or SystemCfg()
         store = PrecomputedStore.open_(path)
-        embedder = make_embedder(cfg.embedder, tokenizer=tokenizer,
-                                 **{"device": cfg.device, **cfg.embedder_kw})
+        return cls._from_store(store, cfg, tokenizer=tokenizer,
+                               engine=engine)
+
+    @classmethod
+    def _from_store(cls, store, cfg=None, *, tokenizer=None, engine=None,
+                    embedder=None, build_stats=None) -> "StorInfer":
+        cfg = cfg or SystemCfg()
+        if embedder is None:
+            embedder = make_embedder(cfg.embedder, tokenizer=tokenizer,
+                                     **{"device": cfg.device,
+                                        **cfg.embedder_kw})
+        t0 = time.perf_counter()
         index = make_index(cfg.index, store, device=cfg.device,
                            cache_dir=(str(store.root) if cfg.cache_index
                                       else None), **cfg.index_kw)
+        index_s = time.perf_counter() - t0
         if engine is None and cfg.engine is not None:
             tok = tokenizer or _tokenizer_from_store(store)
             engine = _build_engine(cfg.engine, tok, cfg.device)
-        return cls(store, embedder, index, engine=engine, cfg=cfg)
+        si = cls(store, embedder, index, engine=engine, cfg=cfg,
+                 build_stats=build_stats)
+        si.index_seconds = index_s
+        return si
 
     def close(self):
         """Stop serving, release runtimes, flush + close the store."""

@@ -14,7 +14,8 @@ Port of the JAX package's ``core/index.py`` serving tiers:
 
 ``auto_index`` picks between them from the store size (``select_tier``);
 ``cache_dir=`` loads a matching persisted IVF fit instead of re-running
-k-means. The sharded tier is not ported yet (ROADMAP A8): ``auto_index``
+k-means. ``IncrementalIndex`` is the offline build's dedup index: an
+append-only device buffer, flat below ``flat_max_rows`` and IVF above it. The sharded tier is not ported yet (ROADMAP A8): ``auto_index``
 raises when ``select_tier`` picks it and never serves another tier in its
 place.
 
@@ -34,11 +35,12 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 import weakref
 import zipfile
 import zlib
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +56,16 @@ SHARD_MIN_ROWS = 4 * FLAT_MAX_ROWS
 # rows gathered to the host per DeviceStore.sync step (bounds peak host
 # memory during the initial upload of a paper-scale store)
 _SYNC_ROWS = 65536
+
+
+def exact_fp32():
+    """Keep CUDA matmuls and convolutions in full f32, as the reference
+    computes: TF32 keeps ~3 decimal digits, which would move the engine's
+    logits and the dedup scores that sit on a 0.99 threshold. Set where
+    the facade, the offline pipeline and the dedup index enter the CUDA
+    path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def _default_layout(device: torch.device) -> str:
@@ -545,3 +557,210 @@ def auto_index(store, mesh=None, *, use_kernel: Optional[bool] = None,
     dev = device_store_for(store, layout=layout, device=device) \
         if is_store else DeviceStore(embs, layout=layout, device=device)
     return FlatIndex(device=dev, use_kernel=dev.layout == "kernel")
+
+
+# ---------------------------------------------------------------------------
+# Incremental dedup index (the offline build)
+# ---------------------------------------------------------------------------
+
+# rows per block of the row -> list assignment product: every block has
+# this one shape (the last one zero-padded), so a row's list is the same
+# however the rows were batched into adds. A product of another row count
+# may take another GEMM kernel, and with it another summation order, which
+# could flip a near tie and break a resumed build's byte identity.
+_ASSIGN_ROWS = 1024
+
+
+class IncrementalIndex:
+    """Append-only max-similarity index for the offline dedup loop (§3.2 at
+    paper scale): ``add(embs)`` + ``max_sim(queries)``, rows in one f32
+    buffer on ``device``.
+
+    * **flat** (<= ``flat_max_rows``): ``max_sim`` is one product against
+      the whole amortized-doubling buffer, exact.
+    * **ivf** (above it): each row is assigned to its max-inner-product
+      centroid; ``max_sim`` probes the top-``nprobe`` lists of each query.
+      Assignment and probing share the metric, so an exact duplicate
+      always probes the list that holds its twin.
+
+    Centroids are refit (the port's ``kmeans`` over all rows so far, on
+    the device) whenever the row count crosses ``flat_max_rows * 2^k``. In
+    the default deterministic mode ``add`` splits batches exactly at those
+    thresholds, and the assignment product has a fixed shape, so the index
+    state is a pure function of the row sequence: a resumed build that
+    re-adds the store shard by shard rebuilds the uninterrupted build's
+    index bit for bit. ``background=True`` refits in a thread instead,
+    giving that up. The port of the JAX package's ``IncrementalIndex``
+    (whose k-means seeding draws from ``jax.random``, so the two agree bit
+    for bit only in flat mode).
+    """
+
+    def __init__(self, dim: int, *, flat_max_rows: int = FLAT_MAX_ROWS,
+                 probe_frac: float = 1 / 16, seed: int = 0,
+                 background: bool = False, device="cuda"):
+        self.dim = dim
+        self.flat_max_rows = flat_max_rows
+        self.probe_frac = probe_frac
+        self.seed = seed
+        self.background = background
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            exact_fp32()
+        self._buf = torch.empty((1024, dim), dtype=torch.float32,
+                                device=self.device)
+        # each row's list (ivf mode): the ragged lists of the reference
+        self._list = torch.zeros(1024, dtype=torch.long, device=self.device)
+        self._n = 0
+        self._next_refit = flat_max_rows
+        self.centroids: Optional[torch.Tensor] = None   # (L, D) in ivf mode
+        self._lock = threading.Lock()
+        self._refit_thread: Optional[threading.Thread] = None
+        self.refits = 0
+        self.refit_seconds: List[float] = []   # wall time of each refit
+
+    def __len__(self) -> int:
+        return self._n
+
+    @property
+    def mode(self) -> str:
+        return "flat" if self.centroids is None else "ivf"
+
+    @property
+    def n_lists(self) -> int:
+        return 0 if self.centroids is None else int(self.centroids.shape[0])
+
+    @property
+    def nprobe(self) -> int:
+        """Duplicates share their twin's top-1 list by construction (same
+        inner-product metric for assignment and probing), so a thin probe
+        fan suffices for dedup — min 4 lists for near-boundary cases."""
+        n_lists = self.n_lists
+        return max(1, min(n_lists,
+                          max(4, int(round(n_lists * self.probe_frac)))))
+
+    def assignment(self) -> np.ndarray:
+        """Each row's list (ivf mode), as a host array."""
+        with self._lock:
+            return self._list[:self._n].cpu().numpy()
+
+    def _put(self, a) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        return t.to(self.device)
+
+    # -- append ---------------------------------------------------------------
+    def add(self, embs: np.ndarray):
+        embs = self._put(embs)
+        if embs.ndim == 1:
+            embs = embs[None, :]
+        if self.background:
+            self._append(embs)
+            if self._n >= self._next_refit and (
+                    self._refit_thread is None
+                    or not self._refit_thread.is_alive()):
+                self._next_refit *= 2
+                self._refit_thread = threading.Thread(
+                    target=self._refit, daemon=True)
+                self._refit_thread.start()
+            return
+        # deterministic mode: split the batch at refit thresholds so the
+        # fit always sees exactly `threshold` rows, however adds arrive
+        while len(embs):
+            room = self._next_refit - self._n
+            head, embs = embs[:room], embs[room:]
+            self._append(head)
+            if self._n == self._next_refit:
+                self._refit()
+                self._next_refit *= 2
+
+    def _grow(self, need: int):
+        cap = self._buf.shape[0]
+        if self._n + need <= cap:
+            return
+        while cap < self._n + need:
+            cap *= 2
+        buf = torch.empty((cap, self.dim), dtype=torch.float32,
+                          device=self.device)
+        buf[:self._n] = self._buf[:self._n]
+        lists = torch.zeros(cap, dtype=torch.long, device=self.device)
+        lists[:self._n] = self._list[:self._n]
+        self._buf, self._list = buf, lists
+
+    def _assign(self, x: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
+        """Max-inner-product list of each row of ``x``, in fixed-shape
+        blocks of ``_ASSIGN_ROWS`` rows."""
+        out = []
+        for lo in range(0, x.shape[0], _ASSIGN_ROWS):
+            blk = x[lo:lo + _ASSIGN_ROWS]
+            n = blk.shape[0]
+            if n < _ASSIGN_ROWS:
+                blk = torch.nn.functional.pad(blk, (0, 0, 0,
+                                                    _ASSIGN_ROWS - n))
+            out.append(torch.argmax(blk @ cent.T, dim=1)[:n])
+        return torch.cat(out)
+
+    def _append(self, embs: torch.Tensor):
+        with self._lock:
+            self._grow(len(embs))
+            lo, hi = self._n, self._n + len(embs)
+            self._buf[lo:hi] = embs
+            if self.centroids is not None:
+                self._list[lo:hi] = self._assign(embs, self.centroids)
+            self._n = hi
+
+    def _refit(self):
+        """K-means over all rows so far; reassign every row. In background
+        mode the fit runs without the lock (appends continue against the
+        old centroids) and only the swap is locked."""
+        t0 = time.perf_counter()
+        with self._lock:
+            n0 = self._n
+            x = self._buf[:n0].clone() if self.background \
+                else self._buf[:n0]
+        n_lists, _ = ivf_params(n0)
+        cent, _ = kmeans(x, n_lists, seed=self.seed)
+        with self._lock:
+            # re-assign by max inner product (the probe metric) so a row
+            # is always found in the list its duplicates will probe first
+            n = self._n
+            self._list[:n] = self._assign(self._buf[:n], cent)
+            self.centroids = cent
+            self.refits += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.refit_seconds.append(time.perf_counter() - t0)
+
+    def drain(self):
+        """Join an in-flight background refit (no-op otherwise)."""
+        if self._refit_thread is not None:
+            self._refit_thread.join()
+
+    # -- query ----------------------------------------------------------------
+    def max_sim(self, queries: np.ndarray) -> np.ndarray:
+        """Max inner product of each query against every stored row
+        (-inf when empty), as a host array. Exact in flat mode;
+        nprobe-approximate in ivf."""
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        with self._lock:
+            n = self._n
+            if n == 0:
+                return np.full(q.shape[0], -np.inf, np.float32)
+            qt = self._put(q)
+            if self.centroids is None:
+                return (qt @ self._buf[:n].T).amax(dim=1).cpu().numpy()
+            _, probes = torch.topk(qt @ self.centroids.T, self.nprobe,
+                                   dim=1)
+            probed = torch.zeros((q.shape[0], self.n_lists), dtype=torch.bool,
+                                 device=self.device)
+            probed.scatter_(1, probes, True)
+            # the rows of every probed list, each list gathered ONCE per
+            # call and scanned as one product against every query, masked
+            # to the lists each query probes
+            lists = self._list[:n]
+            rows = torch.nonzero(probed.any(dim=0)[lists])[:, 0]
+            s = qt @ self._buf[rows].T
+            s = s.masked_fill(~probed[:, lists[rows]], -float("inf"))
+            out = s.amax(dim=1) if rows.numel() else \
+                torch.full((q.shape[0],), -float("inf"), device=self.device)
+            return out.cpu().numpy()

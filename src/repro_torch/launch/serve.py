@@ -6,8 +6,8 @@ LM, on one CUDA device unless ``--device cpu``.
 
 Opens the precomputed store at ``--store``; when there is none it writes
 one first (``write_kb_store``: the KB's question pairs, then seeded filler
-pairs up to ``--n-pairs`` rows — the offline generator is not ported yet,
-ROADMAP A6). It then serves a user-query stream two ways: the paper's
+pairs up to ``--n-pairs`` rows, which sizes a store in seconds; the
+offline generator is ``launch/precompute.py``). It then serves a user-query stream two ways: the paper's
 sequential race, and the staged serving pipeline (``serve()`` /
 ``submit()``), reporting hit rate and hit/miss latency. ``--no-smoke``
 serves the full arch config instead of the reduced smoke one.

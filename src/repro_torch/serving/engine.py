@@ -99,6 +99,25 @@ class Engine:
         return BatchSession(self, prompts, max_new=max_new,
                             temperature=temperature, batch_size=batch_size)
 
+    # -- single-shot generation -----------------------------------------------
+    def generate(self, prompt: str, max_new: int = 32, temperature=None,
+                 seed: int = 0) -> str:
+        """One prompt to its text: a ``Session`` run to completion."""
+        s = self.start_session(prompt, max_new=max_new,
+                               temperature=temperature, seed=seed)
+        while not s.done:
+            s.step_chunk()
+        return s.text()
+
+    def generate_batch(self, prompts, *, max_new=32, temperature=None,
+                       batch_size: int = None) -> List[str]:
+        """Prompts to their texts: a ``BatchSession`` run to completion."""
+        s = self.start_batch_session(prompts, max_new=max_new,
+                                     temperature=temperature,
+                                     batch_size=batch_size)
+        s.run()
+        return [s.text(i) for i in range(s.n)]
+
 
 class Session:
     """Single-request chunked generation with host-side cancellation."""

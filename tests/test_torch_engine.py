@@ -167,3 +167,51 @@ def test_sampled_tokens_follow_the_softmax():
     want = torch.softmax(logits / 0.7, -1)[0].numpy()
     np.testing.assert_allclose(freq, want, atol=0.015)
     assert TE.sample_token(logits, gen, None).item() == 0
+
+
+def _prompt_of(tok, n_tokens):
+    """A prompt of exactly ``n_tokens`` tokens (BOS included)."""
+    words = [w for w in " ".join(PROMPTS).replace("?", "").split()
+             if len(tok.encode(w)) == 1]         # one token each
+    out = []
+    while len(tok.encode(" ".join(out), bos=True)) < n_tokens:
+        out.append(words[len(out) % len(words)])
+    text = " ".join(out)
+    assert len(tok.encode(text, bos=True)) == n_tokens
+    return text
+
+
+@pytest.mark.parametrize("n_tokens", [MAX_LEN - 6, MAX_LEN + 40])
+def test_greedy_generate_past_max_len_identical(engines, n_tokens):
+    """Decoding past ``max_len``: a prompt that ends 6 tokens short of it
+    (decode crosses the end), and one 40 tokens past it (cut to
+    ``max_len - 1``). Past the end every step writes the cache's last slot
+    (the reference's clamped ``dynamic_update_slice``; the port's
+    ``min(cache_len, M - 1)`` and B3's clamped length) and attends the
+    whole cache: greedy tokens identical."""
+    ref, port = engines
+    prompt = _prompt_of(port.tok, n_tokens)
+    assert port.generate(prompt, max_new=24) == \
+        ref.generate(prompt, max_new=24)
+    s = ref.start_session(prompt, max_new=24)
+    t = port.start_session(prompt, max_new=24)
+    while not s.done:
+        s.step_chunk()
+    while not t.done:
+        t.step_chunk()
+    assert t.out_ids == s.out_ids and len(t.out_ids) > 6
+    assert t.cache_len + 1 > MAX_LEN - 1    # decoded at the clamped slot
+
+
+def test_generate_and_generate_batch_match_reference(engines):
+    """``Engine.generate`` (one Session) and ``generate_batch`` (a
+    BatchSession over 3 slots, bf16 cache): greedy texts identical."""
+    ref, port = engines
+    for p in PROMPTS[:2]:
+        assert port.generate(p, max_new=16) == ref.generate(p, max_new=16)
+    got = port.generate_batch(PROMPTS, max_new=20, batch_size=3)
+    assert got == ref.generate_batch(PROMPTS, max_new=20, batch_size=3)
+    assert len(got) == len(PROMPTS) and all(isinstance(t, str) for t in got)
+    text = port.generate(PROMPTS[0], max_new=10, temperature=0.8, seed=3)
+    assert text == port.generate(PROMPTS[0], max_new=10, temperature=0.8,
+                                 seed=3)      # one seed, one sample

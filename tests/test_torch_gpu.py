@@ -51,6 +51,8 @@ FLASH_SHAPES = [
     (1, 46, 46, 16, 8, 256, True),      # the widest head dim, key split
     (2, 70, 130, 6, 2, 256, False),
     (3, 37, 37, 4, 4, 200, True),       # 64-row blocks at D = 200
+    (1, 300, 300, 16, 8, 128, True),    # the LM engine's prefill (TorchLM)
+    (1, 512, 512, 16, 8, 128, True),    # ... at its max_len 512
 ]
 
 
@@ -267,6 +269,29 @@ def test_gpu_decode_attention_reads_nothing_past_the_length(cuda, kv_dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [160, 512])
+def test_gpu_decode_attention_lengths_past_the_cache(cuda, kv_dtype, T):
+    """A decode past the engine's ``max_len`` passes lengths of T and more:
+    the kernel clamps them to T - 1 (attends the whole cache), as the
+    plain version's inclusive mask does."""
+    q, k, v, _ = (_t(a).to(cuda) for a in
+                  _decode_inputs(4, T, 16, 8, 128, T))
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    lengths = torch.tensor([T, T + 1, 3 * T, T - 1], dtype=torch.int32,
+                           device=cuda)
+    clamped = lengths.clamp(max=T - 1)
+    got = ops.decode_attention(q, k, v, lengths, 8)
+    tol = 2e-4 if kv_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got, decode_attention_plain(q, k, v, lengths),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(got, decode_attention_plain(q, k, v, clamped),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(got, ops.decode_attention(q, k, v, clamped,
+                                                         8), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal", FLASH_SHAPES)
 def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, B, S, T, Hq,
@@ -409,6 +434,107 @@ def test_gpu_engine_greedy_tokens_match_cpu(cuda):
     assert outs[0] == outs[1]
     assert ops.decode_attention.launches > n0
     assert ops.flash_attention.launches == f0 + cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_gpu_session_past_max_len_matches_cpu(cuda):
+    """A prompt longer than ``max_len`` (cut to max_len - 1 tokens; every
+    decode step then writes the cache's last slot and passes B3 a length
+    past the cache): greedy tokens on the card equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    words = "what is the height of aurora bridge who founded the meridian"
+    tok = Tokenizer.from_texts([words])
+    cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
+                              vocab_size=tok.vocab_size, n_layers=2)
+    params = M.init_model(cfg, torch.Generator().manual_seed(1),
+                          dtype=torch.float32, device="cpu")
+    prompt = " ".join([words] * 10)
+    assert len(tok.encode(prompt, bos=True)) > 64
+    outs = []
+    for p in (params, _to(params, cuda)):
+        e = Engine(cfg, p, tok, max_len=64, chunk=4)
+        s = e.start_session(prompt, max_new=20)
+        while not s.done:
+            s.step_chunk()
+        outs.append((s.out_ids, e.generate(prompt, max_new=20)))
+    assert outs[0] == outs[1] and len(outs[0][0]) > 4
+
+
+def _unit_rows(n, d, seed=0):
+    x = np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.gpu
+def test_gpu_incremental_index_flat_matches_cpu(cuda):
+    """The dedup index's flat mode on the card against the CPU: max_sim
+    within 1e-6 (f32 summation order; TF32 off) and the same decisions at
+    the 0.99 threshold, duplicates included."""
+    from repro_torch.core.index import IncrementalIndex
+    x = _unit_rows(3000, 384)
+    idx = {d: IncrementalIndex(384, flat_max_rows=10_000, device=d)
+           for d in ("cpu", cuda)}
+    for lo in range(0, 3000, 32):
+        for i in idx.values():
+            i.add(x[lo:lo + 32])
+    q = np.concatenate([_unit_rows(64, 384, seed=1), x[::50],
+                        (x[:20] + 0.1 * _unit_rows(20, 384, 2)) / 1.005])
+    a, b = idx["cpu"].max_sim(q), idx[cuda].max_sim(q)
+    np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(a >= 0.99, b >= 0.99)
+    assert idx[cuda].mode == "flat" and (a >= 0.99).sum() >= 60
+
+
+@pytest.mark.gpu
+def test_gpu_incremental_ivf_state_independent_of_add_batching(cuda):
+    """On the card: one add, shard-sized adds (a resumed build's rebuild)
+    and wave-sized adds (the build) give the same centroids, the same
+    lists and the same max_sim bits."""
+    from repro_torch.core.index import IncrementalIndex
+    x = _unit_rows(5000, 384)
+    q = np.concatenate([_unit_rows(32, 384, seed=3), x[::157]])
+    got = []
+    for step in (5000, 1000, 32):
+        idx = IncrementalIndex(384, flat_max_rows=512, device=cuda)
+        for lo in range(0, 5000, step):
+            idx.add(x[lo:lo + step])
+        assert idx.mode == "ivf" and idx.refits == 4
+        got.append((idx.centroids.cpu(), idx.assignment(), idx.max_sim(q)))
+    for c, a, m in got[1:]:
+        assert torch.equal(c, got[0][0])
+        np.testing.assert_array_equal(a, got[0][1])
+        np.testing.assert_array_equal(m, got[0][2])
+    np.testing.assert_allclose(got[0][2][32:], 1.0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_pipeline_build_independent_of_device(cuda, tmp_path):
+    """A hash-embedded build with the dedup index on the card writes the
+    same store, byte for byte, as one with it on the CPU (flat mode)."""
+    from repro_torch.core.embedder import HashEmbedder
+    from repro_torch.core.generator import SyntheticOracleLM, chunk_key
+    from repro_torch.core.kb import build_kb
+    from repro_torch.core.precompute import PrecomputeCfg, PrecomputePipeline
+    from repro_torch.core.store import PrecomputedStore
+    from repro_torch.core.tokenizer import Tokenizer
+    kb = build_kb("squad", n_docs=20)
+    tok = Tokenizer.from_texts([d.text() for d in kb.docs])
+    chunks = [chunk_key(d.doc_id, d.text()) for d in kb.docs]
+    for dev in ("cpu", "cuda"):
+        st = PrecomputedStore(tmp_path / dev, dim=384, shard_rows=256)
+        PrecomputePipeline(SyntheticOracleLM(kb), HashEmbedder(), tok,
+                           cfg=PrecomputeCfg(wave=32), device=dev).run(
+            chunks, 1024, store=st, seed=0)
+        st.close()
+    for f in sorted(p.name for p in (tmp_path / "cpu").iterdir()):
+        if f != "manifest.json":
+            assert (tmp_path / "cpu" / f).read_bytes() == \
+                (tmp_path / "cuda" / f).read_bytes(), f
 
 
 def _to(x, device):

@@ -1,8 +1,9 @@
 """The port's chip tools on the CPU: every switch
 ``tools/kernel_breakdown.py`` applies to the port's kernels still finds its
 anchor, once, in the sources as they stand, so an edit to a kernel that
-breaks the tool shows here and not on the next run on the card; and
-``tools/search_shapes.py`` times the shapes the GPU tests use."""
+breaks the tool shows here and not on the next run on the card;
+``tools/search_shapes.py`` times the shapes the GPU tests use; and
+``tools/build_breakdown.py``'s stages account for a whole build."""
 import importlib.util
 from pathlib import Path
 
@@ -49,3 +50,30 @@ def test_search_shapes_are_the_gpu_tests_shapes():
     gt = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gt)
     assert ss.MIPS_SHAPES == gt.MIPS_SHAPES
+
+
+def test_build_breakdown_stages_account_for_the_build(tmp_path):
+    """tools/build_breakdown.py at a small size on the CPU (its wall times
+    here are not device numbers): the stages and the rest of the loop sum
+    to the run, each candidate is one oracle call, each wave one encode,
+    and the dedup index crosses into IVF."""
+    import sys
+    sys.path.insert(0, str(ROOT / "src"))
+    spec = importlib.util.spec_from_file_location(
+        "build_breakdown", ROOT / "tools" / "build_breakdown.py")
+    bb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bb)
+    out = bb.breakdown(700, 20, "cpu", flat_max_rows=256, window_at=400,
+                       window=3, work=tmp_path / "store")
+    st = out["stages"]
+    assert out["generated"] == 700 and out["index_mode"] == "ivf"
+    assert out["refits"] == 2 and st["dedup refit"]["calls"] == 2
+    assert sum(v["seconds"] for v in st.values()) == \
+        pytest.approx(out["run_seconds"], rel=1e-9)
+    assert st["encode (hash)"]["calls"] == out["waves"] == \
+        st["dedup max_sim"]["calls"] + 1          # the first wave: empty
+    assert st["answer (oracle LM)"]["calls"] == 700
+    assert st["generate (oracle LM)"]["calls"] >= 700 + out["discarded"]
+    assert out["window"]["mode"] == "ivf" and out["window"]["rows"] >= 400
+    assert out["flat_pairs_per_sec"] > 0 and out["ivf_pairs_per_sec"] > 0
+    assert not (tmp_path / "store").exists()
