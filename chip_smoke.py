@@ -42,11 +42,23 @@ result line is printed only when every phase passed:
    int8 build killed halfway and resumed, byte-identical to an
    uninterrupted one, queried on B2; (d) the same hash build with the
    dedup index on the card and on the CPU, byte-identical; (e) a MiniLM
-   build (the encoder on B4, non-causal).
+   build (the encoder on B4, non-causal);
+8. slice paper8b — the paper's own serving model, storinfer-paper-8b at
+   full width and depth (fp32 random weights from ``--seed``), behind
+   phase 4's store, stream and system (its queues set through
+   ``SystemCfg.queue_depth``): latencies, decode rates, a profiled decode
+   chunk, and the §4 effective latency beside the analytic H100 model;
+9. dense family — storinfer-paper-1b, llama3.2-3b and starcoder2-7b at
+   full width and depth, qwen2.5-32b at full width with 16 of its 64
+   layers (printed on a ``reduced:`` line): a KB prompt's prefill and 16
+   greedy tokens at batch 1 and 4;
+10. minilm train — ``MiniLMEncoder.train_contrastive`` on the card over
+   the KB's paraphrase pairs; its first step against the CPU's, and the
+   query groups' top-1 scores before and after.
 
-The kernels' launch counters are set to 0 just before each serving run
-and each build and read just after it: every kernel of the path must have
-run there. The
+The kernels' launch counters are set to 0 just before each serving run,
+each build and each engine or training run of phases 8-10 and read just
+after it: every kernel of the path must have run there. The
 last lines are one JSON line of per-kernel numbers, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +92,38 @@ TOL_FLASH_F32 = 2e-4         # B4 contract, f32 inputs
 TOL_FLASH_BF16 = 5e-2        # B4 contract, bf16 inputs
 MAX_NEW = 16
 N_STORE = 150000             # the paper's store size (pairs)
+# the dense family's attention shapes at full width, (query heads, kv
+# heads, head dim): B3 and B4 are held to their plain versions at each
+DENSE_HEADS = [("storinfer-paper-8b", 32, 8, 128),
+               ("storinfer-paper-1b", 32, 8, 64),
+               ("llama3.2-3b", 24, 8, 128),
+               ("starcoder2-7b", 36, 4, 128),
+               ("qwen2.5-32b", 40, 8, 128)]
+# phase 9: the rest of the dense family at full width; qwen2.5-32b's 64
+# layers in fp32 (122 GiB) do not fit in 80 GB, so it runs 16 of them
+DENSE_FAMILY = [("storinfer-paper-1b", None), ("llama3.2-3b", None),
+                ("starcoder2-7b", None), ("qwen2.5-32b", 16)]
+PAPER_8B = "storinfer-paper-8b"
+QUEUE_DEPTH = 16             # phase 8's staged-pipeline queues (SystemCfg)
+# phase 10: MiniLM contrastive training on the card. From random weights
+# the full-size encoder maps every text near one vector (the position
+# table dominates), so the reference's momentum SGD (no clipping) moves
+# slowly at the reference test's lr 2e-3, and at lr 0.05 and above it
+# falls and then collapses back to the uniform loss (2 ln 32) within 200
+# steps (seed 0, on the CPU); 0.02 stays below that.
+TRAIN_STEPS, TRAIN_BS, TRAIN_LR = 200, 32, 0.02
+TOL_TRAIN = 1e-4             # the first steps' losses, card vs CPU (relative)
+# At TRAIN_LR the first steps move the weights by a few ulps of f32 (of
+# weights of size 1) and the loss by less than TOL_TRAIN, so neither shows
+# a wrong update. A copy therefore takes TRAIN_CHECK_STEPS steps at
+# TRAIN_CHECK_LR, where the update is far above that spacing, on the card
+# and on the CPU, and the two updates are held together relative to the
+# largest. The encoder's pooled vectors nearly coincide, so the gradient
+# is a difference of close numbers and two f32 runs that sum in other
+# orders agree to about 1e-4 of it; a wrong or missing update is off by
+# order 1.
+TRAIN_CHECK_STEPS, TRAIN_CHECK_LR = 2, 5000.0
+TOL_TRAIN_UPDATE = 1e-3
 # The minilm slice's hit threshold. With random weights the sinusoidal
 # position table dominates MiniLM's pooled vector, so every pair of texts
 # scores close to 1 (seed 0 on an NVIDIA H100 80GB HBM3, 700.00 W: the
@@ -400,10 +444,10 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
     # -- B3 ------------------------------------------------------------------
     B, T, Hq, Hkv, Dh, ns = 4, 160, 16, 8, 128, 8
 
-    def b3_case(T_, lengths, dt, ns_, tol, label, D_=Dh):
-        qq = torch.randn((B, Hq, D_), generator=g, device=dev)
-        kk = torch.randn((B, T_, Hkv, D_), generator=g, device=dev).to(dt)
-        vv = torch.randn((B, T_, Hkv, D_), generator=g, device=dev).to(dt)
+    def b3_case(T_, lengths, dt, ns_, tol, label, D_=Dh, Hq_=Hq, Hkv_=Hkv):
+        qq = torch.randn((B, Hq_, D_), generator=g, device=dev)
+        kk = torch.randn((B, T_, Hkv_, D_), generator=g, device=dev).to(dt)
+        vv = torch.randn((B, T_, Hkv_, D_), generator=g, device=dev).to(dt)
         # the one launch gqa_decode makes (the splits and their merge)
         # against the plain split version and the naive math
         got = ops.decode_attention(qq, kk, vv, lengths, ns_)
@@ -434,6 +478,16 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
                 f"wide D={Dw} f32 cache", Dw)
         b3_case(157, rag, torch.bfloat16, ns, TOL_DECODE_BF16,
                 f"wide D={Dw} ragged T=157 bf16 cache", Dw)
+    # the dense family's heads (G = 3, 4, 5, 9; D = 64 and 128) over a
+    # 160-row cache, ragged lengths: f32 (a session's cache) and bf16 (the
+    # batch scheduler's, as phases 8 and 9 serve)
+    rag160 = torch.randint(0, 160, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    for arch, h, hk, d in DENSE_HEADS:
+        b3_case(T, rag160, torch.float32, ns, TOL_DECODE_F32,
+                f"{arch} Hq={h} Hkv={hk} D={d} T=160 f32 cache", d, h, hk)
+        b3_case(T, rag160, torch.bfloat16, ns, TOL_DECODE_BF16,
+                f"{arch} Hq={h} Hkv={hk} D={d} T=160 bf16 cache", d, h, hk)
     # the LM engine's session (TorchLM in phase 7): B 1, an f32 cache of
     # T = 512, lengths up to and past T - 1 (a decode past max_len passes
     # lengths of T and more; the kernel clamps them to T - 1)
@@ -551,6 +605,9 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
                 f"wide D={Dw} prefill S=T=160 f32 causal")
         b4_case((2, 70, 130, 6, 2, Dw), False, torch.bfloat16,
                 f"wide D={Dw} S=70 T=130 bf16 non-causal")
+    for arch, h, hk, d in DENSE_HEADS:
+        b4_case((1, 160, 160, h, hk, d), True, torch.float32,
+                f"{arch} prefill S=T=160 Hq={h} Hkv={hk} D={d} f32 causal")
     ms, plain, lib, calls, b_ms, b_by = b4_timing(*enc_in, False, 50, flush)
     rows.append(dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/csrc/flash_attention.cu",
@@ -687,15 +744,18 @@ def serve_slice(torch, np, si, stream, exact, answers, label,
         out, res
 
 
-def decode_rate(torch, engine, prompt, batch):
-    """Greedy decode of ``batch`` copies of one prompt (one wave):
-    generated tokens per second and ms per decode step."""
-    s = engine.start_batch_session([prompt] * batch, max_new=33)
+def decode_rate(torch, engine, prompt, batch, max_new=33):
+    """Greedy decode of ``batch`` copies of one prompt (one wave), the
+    prefill outside the timed window: generated tokens per second and ms
+    per decode step."""
+    s = engine.start_batch_session([prompt] * batch, max_new=max_new)
+    s.admit()
+    torch.cuda.synchronize()
     s.run()
     torch.cuda.synchronize()
     toks = sum(len(r.out_ids) - 1 for r in s.results())
     steps = s.chunks_run * engine.chunk
-    return toks / s.decode_s, s.decode_s / steps * 1e3
+    return toks / s.decode_s, s.decode_s / steps * 1e3, s.results()
 
 
 def _dev_us(e):
@@ -711,7 +771,7 @@ def decode_profile(torch, engine, prompt, batch):
     from torch.profiler import ProfilerActivity, profile
     s = engine.start_batch_session([prompt] * batch,
                                    max_new=engine.chunk + 1)
-    s.sched._admit()                 # prefill outside the window
+    s.admit()                        # prefill outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -805,7 +865,7 @@ def phase_slices(torch, np, args, card, corpus):
     miss_prompt = stream[[i for i, (h, _) in
                           enumerate(results["fp16"][0]) if not h][0]]
     for bsz in (1, 4):
-        tps, step_ms = decode_rate(torch, engine, miss_prompt, bsz)
+        tps, step_ms, _ = decode_rate(torch, engine, miss_prompt, bsz)
         print(f"decode qwen3-1.7b full width fp32 weights, batch {bsz}: "
               f"{tps:.1f} tokens/s, {step_ms:.2f} ms/step on {card}")
     wall, busy, top, cpu, n_ops, n_launch = decode_profile(
@@ -1289,11 +1349,341 @@ def phase_build(torch, np, args, card, corpus, engine, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the paper's 8B model, the dense family, MiniLM training
+# ---------------------------------------------------------------------------
+
+
+def release(torch):
+    """Hand back to the card what dropped objects held."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gib(n_bytes):
+    return n_bytes / 2 ** 30
+
+
+def param_bytes(params):
+    from repro_torch.models.convert import tree_leaves
+    ts = list(tree_leaves(params))
+    return sum(t.numel() for t in ts), sum(nb(t) for t in ts)
+
+
+def describe(cfg):
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.resolved_head_dim}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'} head over "
+            f"{cfg.padded_vocab} ids, "
+            f"{'gated ' if cfg.gated_mlp else ''}{cfg.mlp_act} MLP "
+            f"{cfg.d_ff}{', QKV bias' if cfg.attn_bias else ''}"
+            f"{', qk-norm' if cfg.qk_norm else ''}")
+
+
+def phase_paper8b(torch, np, args, card, corpus, dev):
+    """8: the paper's own serving model, storinfer-paper-8b at full width
+    and depth (fp32 random weights from ``--seed``), as the fallback LM
+    behind the paper's 150,000-pair fp16 store; phase 4's stream and
+    system (flat index, 4 decode slots, write-back), the staged
+    pipeline's queues set through ``SystemCfg.queue_depth``."""
+    from repro_torch.api import EngineCfg, StorInfer, SystemCfg
+    from repro_torch.configs import get_config
+    from repro_torch.core import latency
+    from repro_torch.core.embedder import HashEmbedder
+    from repro_torch.core.runtime import BatchedRuntimeCfg
+    from repro_torch.launch.serve import write_kb_store
+
+    label = "slice paper8b"
+    kb, pairs, tok, stream, exact = corpus
+    work = ROOT / "build" / "chip_smoke" / "paper8b"
+    shutil.rmtree(work, ignore_errors=True)
+    ecfg = EngineCfg(arch=PAPER_8B, smoke=False, max_len=160, chunk=8,
+                     seed=args.seed)
+    cfg = SystemCfg(index="flat", s_th_run=0.9, decode_slots=4,
+                    queue_depth=QUEUE_DEPTH, device=str(dev),
+                    batched=BatchedRuntimeCfg(add_misses=True,
+                                              rebuild_every=8),
+                    engine=ecfg)
+    check(cfg.batched.queue_depth == QUEUE_DEPTH,
+          f"{label}: SystemCfg.queue_depth did not reach the runtime")
+    t0 = time.perf_counter()
+    write_kb_store(work, kb, HashEmbedder(), N_STORE, seed=args.seed,
+                   emb_dtype="float16").close()
+    t_write = time.perf_counter() - t0
+    print(f"{label}: device memory held before the build "
+          f"{gib(torch.cuda.memory_allocated()):.3f} GiB (phases 4-7 "
+          "released)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    si = StorInfer.open(work, cfg, tokenizer=tok)
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+    with si:
+        engine = si.engine
+        mcfg = engine.cfg
+        check(mcfg == get_config(PAPER_8B),
+              f"{label}: the engine is not {PAPER_8B} at full width and "
+              "depth")
+        n_par, n_bytes = param_bytes(engine.params)
+        print(f"{label}: {mcfg.name}: {describe(mcfg)}; "
+              f"{n_par / 1e9:.3f} B parameters, {gib(n_bytes):.2f} GiB fp32 "
+              f"on {engine.device}; store of {N_STORE} pairs written in "
+              f"{t_write:.2f} s, opened (upload + engine init) in "
+              f"{t_open:.2f} s")
+        _, counts, out, res = serve_slice(torch, np, si, stream, exact,
+                                          dict(pairs), label)
+        for n in ("mips_topk", "decode_attention", "flash_attention"):
+            check(counts[n] > 0, f"{label}: kernel {n} was not launched on "
+                  "the main path")
+        # a stage's depth counts its bounded queue and what the stage
+        # holds: the search stage a microbatch, the others one item
+        stages = si.stats().pipeline["stages"]
+        held = {"search": cfg.batched.max_batch, "resolve": 1, "decode": 1}
+        print(f"{label}: staged pipeline at queue_depth {QUEUE_DEPTH}: "
+              "deepest " + ", ".join(f"{k} {v['max_depth']}"
+                                     for k, v in stages.items()))
+        check(all(stages[k]["max_depth"] <= QUEUE_DEPTH + n
+                  for k, n in held.items()),
+              f"{label}: a stage queue outgrew queue_depth {QUEUE_DEPTH}")
+        misses = [t for t, r in zip(stream, res) if not r.hit]
+        for bsz in (1, 4):
+            tps, step_ms, _ = decode_rate(torch, engine, misses[0], bsz)
+            out[f"decode_b{bsz}_ms_per_step"] = step_ms
+            print(f"decode {mcfg.name} fp32 weights, batch {bsz}: "
+                  f"{tps:.1f} tokens/s, {step_ms:.2f} ms/step on {card}")
+        wall, busy, top, cpu, n_ops, n_launch = decode_profile(
+            torch, engine, misses[0], 4)
+        print(f"{label}: decode chunk profile (batch 4, {engine.chunk} "
+              f"steps, profiler on): wall {wall * 1e3:.2f} ms, device busy "
+              f"{busy * 1e3:.2f} ms, device idle share "
+              f"{1 - busy / wall:.3f}, {n_ops} aten ops, {n_launch} "
+              "cudaLaunchKernel calls")
+        for name, ms, n in top:
+            print(f"  device {ms:9.3f} ms  x{n:<5d} {name}")
+        hit_rate = out["hits"] / (out["hits"] + out["misses"])
+        hit_s, miss_s = out["hit_p50_ms"] / 1e3, out["miss_p50_ms"] / 1e3
+        eff = latency.effective_latency(hit_rate, hit_s, miss_s)
+        prompt_tokens = int(np.median([len(engine.tok.encode(t, bos=True))
+                                       for t in misses]))
+        model = latency.llm_latency(latency.H100, n_par, prompt_tokens,
+                                    MAX_NEW, dtype_bytes=4)
+        print(f"{label}: §4 effective latency {eff * 1e3:.1f} ms at this "
+              f"stream's hit rate {hit_rate:.3f} ({out['hits']} of "
+              f"{len(stream)}; a constructed mix of exact, 'hi, '-prefixed "
+              "and unanticipated queries, not the paper's Table 1) = "
+              f"{hit_rate:.3f} x hit p50 {hit_s * 1e3:.2f} ms + "
+              f"{1 - hit_rate:.3f} x miss p50 {miss_s * 1e3:.1f} ms, "
+              f"{1 - eff / miss_s:.3f} below the miss p50 at this hit rate; "
+              f"analytic model llm_latency(H100, {n_par / 1e9:.3f}e9, "
+              f"{prompt_tokens} prompt tokens, {MAX_NEW} out, fp32): prefill "
+              f"{model['prefill_s'] * 1e3:.2f} ms + decode "
+              f"{model['decode_s'] * 1e3:.1f} ms = "
+              f"{model['total_s'] * 1e3:.1f} ms on {card}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label}: peak device memory {gib(peak):.3f} GiB on {card}")
+        del engine
+    del si
+    release(torch)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"paper8b": counts}
+
+
+def phase_dense_family(torch, np, args, card, corpus, dev):
+    """9: the rest of the dense family at full width, each engine built
+    from ``init_model`` and ``Engine``: one KB prompt's prefill and
+    ``MAX_NEW`` greedy tokens at batch 1 and batch 4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    tok, prompt = corpus[2], corpus[1][0][0]
+    out = {}
+    for arch, layers in DENSE_FAMILY:
+        label = f"dense family {arch}"
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        if layers is not None:
+            print(f"reduced: {arch} runs {layers} of its {full.n_layers} "
+                  f"layers at full width (fp32 weights at full depth are "
+                  f"{gib(4 * full.param_count()):.1f} GiB, more than the "
+                  "card's 80 GB)")
+        release(torch)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        engine = Engine(cfg, M.init_model(cfg, gen, dtype=torch.float32,
+                                          device=dev), tok, max_len=160,
+                        chunk=8)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_par, n_bytes = param_bytes(engine.params)
+        ids = engine.tok.encode(prompt, bos=True)
+        ops.reset_launch_counts()
+        logits, _ = engine._prefill(engine.tokens(ids))
+        finite = bool(torch.isfinite(logits).all())
+        pre_s = median_s(torch, lambda: engine._prefill(engine.tokens(ids)),
+                         reps=3)
+        rates, ids_out, n_out = [], [], []
+        for bsz in (1, 4):
+            tps, step_ms, done = decode_rate(torch, engine, prompt, bsz,
+                                             max_new=MAX_NEW + 1)
+            rates.append(f"batch {bsz}: {tps:.1f} tokens/s, {step_ms:.2f} "
+                         "ms/step")
+            ids_out += [i for r in done for i in r.out_ids]
+            n_out += [len(r.out_ids) for r in done]
+            out[f"{arch} b{bsz}"] = step_ms
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label}: {describe(cfg)}; {n_par / 1e9:.3f} B parameters, "
+              f"{gib(n_bytes):.2f} GiB fp32, initialised in {t_init:.2f} s "
+              f"({gib(held):.3f} GiB held before); "
+              f"prefill of a {len(ids)}-token KB prompt "
+              f"{pre_s * 1e3:.2f} ms; {MAX_NEW} greedy tokens, "
+              + "; ".join(rates) + f"; peak device memory {gib(peak):.3f} "
+              f"GiB on {card}; launches {counts}")
+        check(finite, f"{label}: prefill logits are not finite")
+        check(all(1 <= n <= MAX_NEW + 1 for n in n_out) and all(
+            0 <= i < cfg.padded_vocab for i in ids_out),
+            f"{label}: token ids outside the padded vocab, or a request "
+            f"without tokens ({n_out})")
+        check(counts["flash_attention"] > 0 and
+              counts["decode_attention"] > 0,
+              f"{label}: prefill or decode did not run on B4/B3 ({counts})")
+        out[arch] = counts
+        del engine, logits
+    release(torch)
+    return {k: v for k, v in out.items() if isinstance(v, dict)}
+
+
+def phase_train(torch, np, args, card, corpus, dev):
+    """10: MiniLM contrastive training on the card (phase 6's encoder
+    config and seed) over the squad KB's paraphrase pairs; the first
+    steps' losses against a CPU run from the same weights and draws, a
+    copy's update at a large step against the CPU's, and the top-1
+    scores of the stream's query groups over the KB's anticipated pairs
+    before and after."""
+    from repro_torch.core.embedder import MiniLMEncoder
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.core.kb import render_query
+    from repro_torch.kernels import ops
+    from repro_torch.models.convert import tree_leaves
+
+    label = "minilm train"
+    kb, pairs, tok, stream, exact = corpus
+    exact_fp32()
+    enc = MiniLMEncoder(tok, seed=args.seed, device=dev)
+    p0 = _tree_to(enc.params, "cpu")
+    train = [(render_query(f, 0), render_query(f, 2)) for f in kb.facts]
+    groups = {"exact": [], "near": [], "unanticipated": []}
+    for t in stream:
+        groups["exact" if t in exact else "near" if t.startswith("hi, ")
+               else "unanticipated"].append(t)
+    anticipated = [q for q, _ in pairs]
+
+    def top1():
+        x = torch.from_numpy(enc.encode(anticipated)).to(dev)
+        return {g: ops.mips_topk(torch.from_numpy(enc.encode(ts)).to(dev),
+                                 x, 1)[0][:, 0].cpu().numpy()
+                for g, ts in groups.items()}
+
+    ops.reset_launch_counts()
+    before = top1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = enc.train_contrastive(train, steps=TRAIN_STEPS, bs=TRAIN_BS,
+                                   lr=TRAIN_LR, seed=args.seed)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    after = top1()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_cpu = 3
+    t0 = time.perf_counter()
+    cpu_losses = MiniLMEncoder(tok, params=_tree_to(p0, "cpu"),
+                               device="cpu").train_contrastive(
+        train, steps=n_cpu, bs=TRAIN_BS, lr=TRAIN_LR, seed=args.seed)
+    t_cpu = (time.perf_counter() - t0) / n_cpu
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"{label}: {TRAIN_STEPS} steps of bs {TRAIN_BS} at lr {TRAIN_LR} "
+          f"over {len(train)} paraphrase pairs in {t_train:.2f} s, "
+          f"{t_train / TRAIN_STEPS:.4f} s per step on {card} (the CPU: "
+          f"{t_cpu:.2f} s per step); loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}, mean of the first 10 {first:.5f}, of the last "
+          f"10 {last:.5f}; launches {counts}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    print(f"{label}: the first {n_cpu} steps' losses on the card "
+          + " ".join(f"{x:.7f}" for x in losses[:n_cpu]) + ", on the CPU "
+          + " ".join(f"{x:.7f}" for x in cpu_losses)
+          + f" (largest relative difference {err:.2e}, tol {TOL_TRAIN}, "
+          "TF32 off)")
+    # the update at a large step: the full-size backward and momentum SGD
+    chk = [MiniLMEncoder(tok, params=_tree_to(p0, d), device=d)
+           for d in (dev, "cpu")]
+    chk_losses = [e.train_contrastive(train, steps=TRAIN_CHECK_STEPS,
+                                      bs=TRAIN_BS, lr=TRAIN_CHECK_LR,
+                                      seed=args.seed) for e in chk]
+    base = list(tree_leaves(p0))
+    ups = [[p.cpu() - b for p, b in zip(tree_leaves(e.params), base)]
+           for e in chk]
+    scale = max(float(u.abs().max()) for u in ups[1])
+    diffs = [float((a - b).abs().max()) for a, b in zip(*ups)]
+    up_err = max(diffs) / scale
+    leaf_err = max(d / max(float(u.abs().max()), 1e-30)
+                   for d, u in zip(diffs, ups[1]))
+    chk_err = max(abs(a - b) / abs(b) for a, b in zip(*chk_losses))
+    print(f"{label}: a copy's {TRAIN_CHECK_STEPS} steps at lr "
+          f"{TRAIN_CHECK_LR:g}, card vs CPU: largest update {scale:.4f}, "
+          f"updates differ by {up_err:.2e} of it (tol {TOL_TRAIN_UPDATE}; "
+          f"worst leaf {leaf_err:.2e} of its own largest), losses by "
+          f"{chk_err:.2e} relative (tol {TOL_TRAIN})")
+    for name, sc in (("before", before), ("after", after)):
+        for g, v in sc.items():
+            print(f"{label}: top-1 scores {name} training, {g} "
+                  f"({len(v)}) over the {len(anticipated)} anticipated "
+                  "pairs: min/p10/p50/p90/max " + " ".join(
+                      f"{x:.6f}" for x in np.percentile(v, [0, 10, 50, 90,
+                                                            100])))
+        stored = np.concatenate([sc["exact"], sc["near"]])
+        print(f"{label}: {name} training, lowest stored-query score "
+              f"{stored.min():.6f} vs highest unanticipated "
+              f"{sc['unanticipated'].max():.6f}: "
+              + ("separable" if stored.min() > sc["unanticipated"].max()
+                 else "overlapping"))
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+          f"{label}: a loss is not finite")
+    check(last < first, f"{label}: the loss did not fall ({first} -> "
+          f"{last})")
+    check(err <= TOL_TRAIN, f"{label}: the first steps' losses differ from "
+          f"the CPU's by {err:.2e} relative")
+    check(up_err <= TOL_TRAIN_UPDATE and chk_err <= TOL_TRAIN,
+          f"{label}: the update at lr {TRAIN_CHECK_LR:g} differs from the "
+          f"CPU's by {up_err:.2e} of the largest (losses {chk_err:.2e})")
+    del enc, chk
+    release(torch)
+    return {"minilm train": counts}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.detach().to(device).clone()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds every input: store, weights, queries")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # -- phase 1: device -----------------------------------------------------
     import torch
@@ -1337,10 +1727,28 @@ def main():
 
     # -- phase 7: the offline build -------------------------------------------
     counts.update(phase_build(torch, np, args, card, corpus, engine, dev))
+
+    # -- phase 8: the paper's 8B model behind the paper store -----------------
+    del engine                 # phase 4's qwen3-1.7b, shared by 6 and 7
+    release(torch)
+    t8 = time.perf_counter()
+    counts.update(phase_paper8b(torch, np, args, card, corpus, dev))
+    print(f"slice paper8b: phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    # -- phase 9: the rest of the dense family --------------------------------
+    t9 = time.perf_counter()
+    counts.update(phase_dense_family(torch, np, args, card, corpus, dev))
+    print(f"dense family: phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    # -- phase 10: MiniLM contrastive training --------------------------------
+    t10 = time.perf_counter()
+    counts.update(phase_train(torch, np, args, card, corpus, dev))
+    print(f"minilm train: phase 10 took {time.perf_counter() - t10:.1f} s")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"smoke: the whole run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

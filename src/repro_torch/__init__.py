@@ -13,9 +13,9 @@ from __future__ import annotations
 _API_EXPORTS = (
     "StorInfer", "SystemCfg", "EngineCfg", "SystemStats",
     "QueryResult", "RuntimeStats",
-    "EmbedderProtocol", "IndexProtocol", "register_embedder",
-    "register_index", "make_embedder", "make_index", "make_pipeline",
-    "tier_of",
+    "EmbedderProtocol", "IndexProtocol", "IndexCaps", "index_caps",
+    "register_embedder", "register_index",
+    "make_embedder", "make_index", "make_pipeline", "tier_of",
 )
 
 __all__ = list(_API_EXPORTS)

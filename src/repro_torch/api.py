@@ -49,9 +49,9 @@ import numpy as np
 from repro_torch.core.embedder import HashEmbedder, MiniLMEncoder
 from repro_torch.core.generator import (GenCfg, QueryLM, SyntheticOracleLM,
                                         chunk_key)
-from repro_torch.core.index import (FlatIndex, IVFIndex, auto_index,
-                                    cached_device_store, device_store_for,
-                                    exact_fp32)
+from repro_torch.core.index import (FlatIndex, IncrementalIndex, IVFIndex,
+                                    auto_index, cached_device_store,
+                                    device_store_for, exact_fp32)
 from repro_torch.core.precompute import (PrecomputeCfg, PrecomputePipeline,
                                          PrecomputeStats)
 from repro_torch.core.runtime import (BatchedRuntime, BatchedRuntimeCfg,
@@ -61,10 +61,10 @@ from repro_torch.core.store import SHARD_ROWS, PrecomputedStore
 from repro_torch.core.tokenizer import Tokenizer
 
 __all__ = [
-    "EmbedderProtocol", "IndexProtocol", "register_embedder",
-    "register_index", "make_embedder", "make_index", "make_pipeline",
-    "tier_of", "EngineCfg", "SystemCfg", "SystemStats", "StorInfer",
-    "QueryResult", "RuntimeStats",
+    "EmbedderProtocol", "IndexProtocol", "IndexCaps", "index_caps",
+    "register_embedder", "register_index", "make_embedder", "make_index",
+    "make_pipeline", "tier_of", "EngineCfg", "SystemCfg", "SystemStats",
+    "StorInfer", "QueryResult", "RuntimeStats",
 ]
 
 
@@ -93,7 +93,24 @@ class IndexProtocol(Protocol):
     def __len__(self) -> int: ...
 
 
-_TIER_NAMES = {FlatIndex: "flat", IVFIndex: "ivf"}
+@dataclasses.dataclass(frozen=True)
+class IndexCaps:
+    """What an index can do beyond ``search``: persist its build product
+    (``save``/``load``, IVF's k-means fit) and grow in place (``add``,
+    the incremental dedup tier)."""
+    save: bool
+    load: bool
+    add: bool
+
+
+def index_caps(index) -> IndexCaps:
+    return IndexCaps(save=callable(getattr(index, "save", None)),
+                     load=callable(getattr(type(index), "load", None)),
+                     add=callable(getattr(index, "add", None)))
+
+
+_TIER_NAMES = {FlatIndex: "flat", IVFIndex: "ivf",
+               IncrementalIndex: "incremental"}
 
 
 def tier_of(index) -> str:
@@ -238,7 +255,12 @@ class SystemCfg:
         default_factory=BatchedRuntimeCfg)
     engine: Optional[EngineCfg] = None
     s_th_run: Optional[float] = None
-    decode_slots: Optional[int] = None   # overrides cfg.batched's
+    # -- staged-pipeline conveniences (override cfg.batched's knobs) ------
+    decode_slots: Optional[int] = None     # persistent decode slot count
+    queue_depth: Optional[int] = None      # per-stage bounded queue depth
+    async_writeback: Optional[bool] = None  # §3.1 write-back off the
+    #                                         critical path (background
+    #                                         rebuild + atomic index swap)
     cache_index: bool = True           # persist/load the IVF fit in the
                                        # store root (index_ivf.npz)
     device: str = "cuda"
@@ -258,9 +280,12 @@ class SystemCfg:
                                                s_th_run=self.s_th_run)
             self.batched = dataclasses.replace(self.batched,
                                                s_th_run=self.s_th_run)
-        if self.decode_slots is not None:
-            self.batched = dataclasses.replace(
-                self.batched, decode_slots=self.decode_slots)
+        pipeline_kw = {k: getattr(self, k)
+                       for k in ("decode_slots", "queue_depth",
+                                 "async_writeback")
+                       if getattr(self, k) is not None}
+        if pipeline_kw:
+            self.batched = dataclasses.replace(self.batched, **pipeline_kw)
         if self.quantize:
             self.emb_dtype = "int8"
         elif self.emb_dtype == "int8":

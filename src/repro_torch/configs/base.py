@@ -5,7 +5,10 @@ Every architecture the port serves is a ``ModelConfig`` in its own module
 under ``repro_torch.configs``; ``get_config(name)`` resolves it.
 ``reduced()`` produces the CPU-smoke-test variant of any config (same family
 / same code paths, tiny dims). Only the dense family is ported so far, so
-only ``qwen3-1.7b`` is registered.
+the registered archs are its six: ``storinfer-paper-8b`` and
+``storinfer-paper-1b`` (the paper's own serving model and its on-device
+fallback), ``llama3.2-3b``, ``starcoder2-7b``, ``qwen2.5-32b`` and
+``qwen3-1.7b``.
 """
 from __future__ import annotations
 
@@ -212,7 +215,8 @@ def list_configs() -> list:
 
 def _load_all() -> None:
     # importing the modules populates the registry via register()
-    from repro_torch.configs import qwen3_1_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        llama3_2_3b, qwen2_5_32b, qwen3_1_7b, starcoder2_7b, storinfer_paper)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
   kb         — knowledge bases + user-query distributions (copy)
   tokenizer  — deterministic text tokenizer (copy)
-  embedder   — query embedding (hash n-gram features)
+  embedder   — query embedding (hash n-gram features; the MiniLM-class
+               encoder, with its contrastive training)
   store      — disk-backed precomputed-pair store (copy; same disk format)
   index      — device-resident MIPS tiers over the store (flat, IVF) and
                the offline build's incremental dedup index
@@ -12,6 +13,9 @@
                one embed batch + incremental-index dedup per wave,
                checkpointed into the store manifest (§3.2/3.3)
   runtime    — parallel search + cancellable LLM inference (§3.4, Fig 2)
+  metrics    — Unigram F1 / ROUGE-L / BERTScore-proxy (§4; copy)
+  latency    — the analytic latency model at the paper's H100 point, the
+               §4 effective latency and a CUDA-synchronised ``measure``
 """
 from __future__ import annotations
 
@@ -24,6 +28,10 @@ _EXPORTS = {
                      "SyntheticOracleLM", "chunk_key", "masked_for_chunk"),
                     "generator"),
     "IncrementalIndex": "index",
+    **dict.fromkeys(("unigram_f1", "rouge_l_f1", "bert_score_f1",
+                     "corpus_mean"), "metrics"),
+    **dict.fromkeys(("HwPoint", "H100", "llm_latency", "effective_latency",
+                     "measure"), "latency"),
     **dict.fromkeys(("STATE_KEY", "STATE_VERSION", "BuildKilled",
                      "PrecomputeCfg", "PrecomputePipeline",
                      "PrecomputeStats", "chunks_digest"), "precompute"),

@@ -11,7 +11,10 @@ L2-normalized float32`` interface, as in the JAX package's
   runs the ``flash_attention`` kernel on CUDA. Weights come from a seeded
   ``torch.Generator`` with the reference's shapes and scales, or from a
   given params dict (``models/convert.py:params_from_jax`` copies the
-  reference's). ``train_contrastive`` is not ported (ROADMAP A7).
+  reference's). ``train_contrastive`` trains it on paraphrase pairs with
+  the reference's arithmetic (in-batch negatives, momentum SGD, numpy
+  batch draws); its forward runs the plain attention under autograd, as
+  the kernel has no backward.
 
 MIPS on L2-normalized embeddings == cosine similarity (the paper's metric).
 """
@@ -28,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as Lyr
 from repro_torch.models import model as M
+from repro_torch.models.convert import tree_leaves
 
 _WORDS = re.compile(r"\w+")
 
@@ -120,11 +124,17 @@ class MiniLMEncoder:
         L2-normed. Every position attends to every other one, padding
         included (the mask only weights the pooling), as in the
         reference."""
+        return self._pooled(tokens, mask, "kernel")
+
+    def _pooled(self, tokens, mask, attn_impl):
+        """``_forward`` without ``no_grad``; ``attn_impl`` as in
+        ``models/model.py:gqa_fullseq``."""
         x = self.params["embed"]["w"][tokens] + self._pos[None]
         pos = torch.arange(tokens.shape[1], device=self.device)[None] \
             .expand(tokens.shape)
         for lp in self.params["blocks"]:
-            x, _ = M.block_fullseq(self.mcfg, lp, x, pos, kind="enc")
+            x, _ = M.block_fullseq(self.mcfg, lp, x, pos, kind="enc",
+                                   attn_impl=attn_impl)
         # the final norm's eps is the reference's hard-coded 1e-6
         x = Lyr.rmsnorm(self.params["final_norm"], x, 1e-6)
         pooled = (x * mask[..., None]).sum(1) / torch.clamp(
@@ -165,3 +175,43 @@ class MiniLMEncoder:
             toks, mask = self._batch(chunk, pad_to=self._bucket(len(chunk)))
             out.append(self._forward(toks, mask)[:len(chunk)].cpu().numpy())
         return out[0] if len(out) == 1 else np.concatenate(out, axis=0)
+
+    # -- contrastive training (InfoNCE over paraphrase pairs) --------------
+    def train_contrastive(self, pairs, *, steps=200, bs=32, lr=1e-3,
+                          temp=0.07, seed=0):
+        """pairs: list of (text_a, text_b) positives. In-batch negatives:
+        the symmetric InfoNCE loss at ``temp``, momentum SGD (``m = 0.9 m
+        + 0.1 g; p -= lr m``) on every parameter, batches drawn by
+        ``np.random.default_rng(seed)`` exactly as the reference draws
+        them. Updates ``self.params`` in place; returns the per-step
+        losses. The forward runs the plain attention (``attn_impl=
+        "naive"``) on any device: the B4 kernel has no backward."""
+        rng = np.random.default_rng(seed)
+        leaves = list(tree_leaves(self.params))
+        moms = [torch.zeros_like(p) for p in leaves]
+        losses = []
+        try:
+            for p in leaves:
+                p.requires_grad_(True)
+            for _ in range(steps):
+                idx = rng.choice(len(pairs), size=min(bs, len(pairs)),
+                                 replace=False)
+                ta, ma = self._batch([pairs[i][0] for i in idx])
+                tb, mb = self._batch([pairs[i][1] for i in idx])
+                za = self._pooled(ta, ma, "naive")
+                zb = self._pooled(tb, mb, "naive")
+                logits = za @ zb.T / temp
+                ll = torch.log_softmax(logits, dim=-1)
+                lt = torch.log_softmax(logits.T, dim=-1)
+                loss = -(ll.diagonal().mean() + lt.diagonal().mean())
+                grads = torch.autograd.grad(loss, leaves)
+                with torch.no_grad():
+                    for p, g, m in zip(leaves, grads, moms):
+                        m.copy_(0.9 * m + 0.1 * g)
+                        p.sub_(lr * m)
+                losses.append(float(loss.detach()))
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return losses
+

@@ -11,7 +11,9 @@ first use each source is compiled by ``nvcc`` into its own shared library
 with a plain C interface under ``build/kernels/`` of the checkout (all
 sources at once, in parallel) and loaded with ``ctypes``; a library is
 rebuilt when its source, header or flags change. A failed build raises with
-the compiler's output.
+the compiler's output. An installed package (the sources ship in the
+wheel as package data) builds into a per-user cache directory instead,
+as does a checkout whose ``build/`` cannot be written.
 """
 from __future__ import annotations
 
@@ -32,7 +34,24 @@ from repro_torch.kernels import mips_topk as _mt
 from repro_torch.kernels import mips_topk_int8 as _mt8
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _build_dir() -> Path:
+    """``build/kernels`` of the checkout when the package sits in one
+    (``<root>/src/repro_torch``) and that ``build/`` can be written, else
+    ``$XDG_CACHE_HOME/repro_torch/kernels`` (``~/.cache`` by default)."""
+    root = Path(__file__).resolve().parents[3]
+    if (root / "pyproject.toml").is_file() and \
+            Path(__file__).resolve().parents[2].name == "src":
+        build = root / "build"
+        if os.access(build if build.exists() else root, os.W_OK):
+            return build / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or \
+        str(Path.home() / ".cache")
+    return Path(cache) / "repro_torch" / "kernels"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # kernel name -> (source, ctypes argtypes)

@@ -37,3 +37,16 @@ def _first_leaf(x):
     while isinstance(x, dict):
         x = next(iter(x.values()))
     return x
+
+
+def tree_leaves(tree):
+    """The tensors of a port params tree (dicts and lists), in a fixed
+    order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree

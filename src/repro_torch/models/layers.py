@@ -27,8 +27,10 @@ def torch_dtype(name) -> torch.dtype:
 
 
 def _normal(gen, shape, scale, dtype, device):
+    # scaled in place: a full-width model is initialised on the card
+    # tensor by tensor, with no second f32 copy of the largest one
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def dense_init(gen, d_in, d_out, dtype, device, bias=False, scale=None):

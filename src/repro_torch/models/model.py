@@ -11,6 +11,10 @@ Conventions
   on CUDA, single-token decode the ``decode_attention`` kernel. On CPU
   both wrappers take their plain versions, which are the naive attention
   the reference engine and encoder run (``RunCfg(attn_impl="naive")``).
+  ``attn_impl="naive"`` (the counterpart of the reference's
+  ``RunCfg.attn_impl``) runs the full-sequence attention as that plain
+  math on any device, under autograd: the kernel has no backward, so
+  training (``MiniLMEncoder.train_contrastive``) asks for it.
 * The decode cache is ``{"k": (L,B,M,Hkv,Dh), "v": (L,B,M,Hkv,Dh)}``.
   Unlike the reference, which returns a new cache, ``decode_step``
   writes the new token's k/v INTO the cache it is given (no copy of the
@@ -23,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import layers as Lyr
 
 DECODE_SPLITS = 8      # split-KV chunks per decode_attention launch
@@ -32,7 +37,9 @@ def _check_dense(cfg):
     if cfg.family not in ("dense", "vlm") or cfg.use_mla or \
             cfg.rope_kind == "mrope":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (ROADMAP A9)")
+            f"{cfg.name}: only the dense family is ported; the moe, ssm, "
+            "hybrid, encdec and vlm families, MLA attention and M-RoPE are "
+            "not (ROADMAP A9)")
 
 
 # ---------------------------------------------------------------------------
@@ -88,15 +95,23 @@ def _rope_q_k(cfg, p, q, k, positions):
     return q, k
 
 
-def gqa_fullseq(cfg, p, x, positions, *, causal=True):
-    """Returns (out (B,S,d), {"k","v"}) for prefill and the encoder."""
+def gqa_fullseq(cfg, p, x, positions, *, causal=True, attn_impl="kernel"):
+    """Returns (out (B,S,d), {"k","v"}) for prefill and the encoder.
+    ``attn_impl``: ``"kernel"`` (B4 on CUDA, its plain version on the
+    CPU) or ``"naive"`` (the plain math on any device, differentiable)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = Lyr.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = Lyr.dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = Lyr.dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
     q, k = _rope_q_k(cfg, p, q, k, positions)
-    out = ops.flash_attention(q, k, v, causal)
+    if attn_impl == "kernel":
+        out = ops.flash_attention(q, k, v, causal)
+    elif attn_impl == "naive":
+        out = flash_attention_plain(q, k, v, causal)
+    else:
+        raise ValueError(f"attn_impl must be 'kernel' or 'naive', got "
+                         f"{attn_impl!r}")
     return Lyr.dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), \
         {"k": k, "v": v}
 
@@ -134,14 +149,15 @@ def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None):
 # ---------------------------------------------------------------------------
 
 
-def block_fullseq(cfg, p, x, positions, kind="dense"):
+def block_fullseq(cfg, p, x, positions, kind="dense", attn_impl="kernel"):
     """One layer over a full sequence: ``"dense"`` attends causally,
-    ``"enc"`` to every position. Returns (x, kv)."""
+    ``"enc"`` to every position. Returns (x, kv). ``attn_impl`` as in
+    ``gqa_fullseq``."""
     if kind not in ("dense", "enc"):
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     h, kv = gqa_fullseq(cfg, p["attn"],
                         Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
-                        causal=(kind != "enc"))
+                        causal=(kind != "enc"), attn_impl=attn_impl)
     x = x + h
     x = x + Lyr.mlp(cfg, p["mlp"], Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, kv

@@ -362,6 +362,11 @@ class BatchSession:
     def cancel(self, i: int):
         self.sched.cancel(i)
 
+    def admit(self):
+        """Prefill the next wave into free slots now (``step_chunk`` does
+        it otherwise), so that ``decode_s`` then times decode alone."""
+        self.sched._admit()
+
     def step_chunk(self):
         if self.done:
             return

@@ -4,9 +4,13 @@ encoder's pytree, ``MiniLMEncoder.encode`` with the reference's weights
 copied in (over batches that cross a power-of-two bucket and the
 ``max_batch`` chunk, an empty list and a text longer than ``max_len``),
 and ``StorInfer`` with ``embedder="minilm"`` in both packages on one store
-and stream: the same hit/miss split, hit rows and greedy miss text. On
-the CPU the encoder's non-causal attention takes the plain version of the
-``flash_attention`` kernel."""
+and stream: the same hit/miss split, hit rows and greedy miss text; and
+``train_contrastive`` against the reference's on the reference test's tiny
+encoder: the same per-step losses and the same parameters afterwards
+from copied weights and the same batch draws, and a falling loss over 80
+steps. On the CPU the encoder's non-causal attention takes the plain
+version of the ``flash_attention`` kernel (training runs it under
+autograd on any device)."""
 import dataclasses
 
 import jax
@@ -18,7 +22,7 @@ from repro.api import EngineCfg as JEngineCfg
 from repro.api import StorInfer as JStorInfer
 from repro.api import SystemCfg as JSystemCfg
 from repro.core import embedder as JE
-from repro.core.kb import build_kb, sample_user_queries
+from repro.core.kb import build_kb, render_query, sample_user_queries
 from repro.core.tokenizer import Tokenizer as JTokenizer
 from repro.models import layers as JLyr
 from repro_torch.api import StorInfer, SystemCfg, make_embedder
@@ -27,7 +31,7 @@ from repro_torch.core import embedder as TE
 from repro_torch.core.tokenizer import Tokenizer
 from repro_torch.launch.serve import kb_pairs, write_kb_store
 from repro_torch.models import layers as Lyr
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, tree_leaves
 from repro_torch.serving.engine import Engine
 
 SMALL = dict(dim=64, n_layers=2, n_heads=2, d_ff=128, max_len=16)
@@ -186,3 +190,76 @@ def test_storinfer_minilm_same_split_rows_and_miss_text(tmp_path):
     assert all(r.hit for r in rt[:3]) and not all(r.hit for r in rt)
     misses = [(a.response, b.response) for a, b in zip(rt, rj) if not a.hit]
     assert misses and all(a == b for a, b in misses)
+
+
+# the reference's own training test (tests/test_embedder.py): a tiny
+# encoder, paraphrase pairs of one fact under templates 0 and 2
+TRAIN = dict(dim=64, n_layers=2, n_heads=4, d_ff=128, max_len=24)
+
+
+@pytest.fixture(scope="module")
+def trainable():
+    kb = build_kb("squad", n_docs=6)
+    texts = [d.text() for d in kb.docs]
+    jtok = JTokenizer.from_texts(texts, max_vocab=512)
+    ref = JE.MiniLMEncoder(jtok, JE.EncoderCfg(vocab_size=jtok.vocab_size,
+                                               **TRAIN), seed=0)
+    pairs = [(render_query(f, 0), render_query(f, 2))
+             for f in kb.facts[:64]]
+    return ref, Tokenizer.from_texts(texts, max_vocab=512), pairs
+
+
+def _port_copy(ref, tok):
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, ref.params),
+                             device="cpu")
+    return TE.MiniLMEncoder(tok, TE.EncoderCfg(vocab_size=tok.vocab_size,
+                                               **TRAIN),
+                            params=params, device="cpu")
+
+
+def test_train_contrastive_matches_reference(trainable):
+    """5 steps from the same weights with the same seed: the per-step
+    losses within 1e-4 relative, every parameter within 1e-4 afterwards
+    (XLA and torch sum in different orders)."""
+    ref0, tok, pairs = trainable
+    ref = JE.MiniLMEncoder(ref0.tok, ref0.cfg, seed=0)
+    port = _port_copy(ref, tok)
+    want = ref.train_contrastive(pairs, steps=5, bs=16, lr=2e-3, seed=0)
+    got = port.train_contrastive(pairs, steps=5, bs=16, lr=2e-3, seed=0)
+    assert len(got) == 5 and all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    after = params_from_jax(jax.tree_util.tree_map(np.asarray, ref.params),
+                            device="cpu")
+    leaves = list(tree_leaves(port.params))
+    want_leaves = list(tree_leaves(after))
+    assert len(leaves) == len(want_leaves) > 10
+    for a, b in zip(leaves, want_leaves):
+        assert not a.requires_grad
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    # training moved the weights, and encode still runs on them
+    init = _port_copy(ref0, tok)
+    assert not np.allclose(leaves[0].numpy(),
+                           init.params["embed"]["w"].numpy())
+    np.testing.assert_allclose(port.encode([p[0] for p in pairs[:5]]),
+                               ref.encode([p[0] for p in pairs[:5]]),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_train_contrastive_improves_alignment(trainable):
+    """The reference's own test on the port: the loss falls over 80 steps
+    and the gap between paired and all-pairs similarity does not."""
+    ref0, tok, pairs = trainable
+    enc = _port_copy(ref0, tok)
+
+    def pair_sim():
+        a = enc.encode([p[0] for p in pairs[:32]])
+        b = enc.encode([p[1] for p in pairs[:32]])
+        return float(np.mean(np.sum(a * b, axis=1))) - float(np.mean(a @ b.T))
+
+    before = pair_sim()
+    losses = enc.train_contrastive(pairs, steps=80, bs=16, lr=2e-3)
+    after = pair_sim()
+    assert np.mean(losses[-10:]) < np.mean(losses[:10]), \
+        (losses[:3], losses[-3:])
+    assert after > before - 0.02, (before, after)

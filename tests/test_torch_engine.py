@@ -1,12 +1,18 @@
 """Parity of the port's dense engine (repro_torch.models + serving.engine)
-with the JAX reference on the EngineCfg smoke arch (qwen3-1.7b reduced,
-2 layers, max_len 160, chunk 8), with the reference's weights copied in
-through ``params_from_jax``: prefill logits, greedy tokens through
-``Session`` (f32 cache) and ``BatchScheduler`` (bf16 cache), and the
-cancel/retire sequence of a scripted scheduler run. Everything runs on
-the CPU, where the decode-attention wrapper takes its plain version (the
-reference engine's naive decode math)."""
+with the JAX reference on the dense family's ``reduced()`` archs (2
+layers, the KB tokenizer's vocab, max_len 160, chunk 8), with the
+reference's weights copied in through ``params_from_jax``: the configs
+themselves, the converted parameters, prefill logits and greedy tokens
+through ``Session`` (f32 cache) for each of the six registered archs
+(qwen3-1.7b: tied, gated, ``qk_norm``; storinfer-paper-8b and
+qwen2.5-32b: an untied head; starcoder2-7b: QKV bias and a non-gated GELU
+MLP; qwen2.5-32b: QKV bias) and two head groupings ``reduced()`` hides
+(G = 9 and G = 3); and on qwen3's, ``BatchScheduler`` (bf16 cache) and
+the cancel/retire sequence of a scripted scheduler run. Everything runs
+on the CPU, where the attention wrappers take their plain versions (the
+reference engine's naive math)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +28,7 @@ from repro.serving import engine as E
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.core.tokenizer import Tokenizer as TTokenizer
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, tree_leaves
 from repro_torch.serving import engine as TE
 
 MAX_LEN, CHUNK = 160, 8
@@ -32,20 +38,31 @@ PROMPTS = ["what is the height of aurora bridge?",
            "what is the founder of lake halcyon?",
            "zebra xylophone never stored anywhere at all",
            "what is the length of the iron canal?"]
+ARCHS = ["qwen3-1.7b", "storinfer-paper-8b", "storinfer-paper-1b",
+         "llama3.2-3b", "starcoder2-7b", "qwen2.5-32b"]
+# head groupings the reduced configs (4 heads over 2) never reach:
+# starcoder2-7b's G = 9 (with its GELU MLP and QKV bias), and G = 3
+HEAD_SHAPES = {"starcoder2-7b:G9": dict(n_heads=9, n_kv_heads=1),
+               "storinfer-paper-1b:G3": dict(n_heads=6, n_kv_heads=2)}
+VARIANTS = ARCHS + list(HEAD_SHAPES)
 
 
-@pytest.fixture(scope="module")
-def engines():
+@functools.lru_cache(maxsize=None)
+def _engines(variant):
+    """(reference engine, port engine) on one variant's reduced arch, the
+    port holding the reference's weights."""
+    arch = variant.split(":")[0]
     kb = build_kb("squad", n_docs=4)
     texts = [d.text() for d in kb.docs]
     tok = Tokenizer.from_texts(texts, max_vocab=512)
-    cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
-                              vocab_size=tok.vocab_size, n_layers=2)
+    kw = dict(vocab_size=tok.vocab_size, n_layers=2,
+              **HEAD_SHAPES.get(variant, {}))
+    cfg = dataclasses.replace(reduced(get_config(arch)), **kw)
     params = M.init_model(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
     ref = E.Engine(cfg, params, tok, M.RunCfg(attn_impl="naive", remat=False),
                    max_len=MAX_LEN, chunk=CHUNK)
-    tcfg = dataclasses.replace(t_reduced(t_get_config("qwen3-1.7b")),
-                               vocab_size=tok.vocab_size, n_layers=2)
+    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)), **kw)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
                               device="cpu")
     port = TE.Engine(tcfg, tparams, TTokenizer.from_texts(texts,
@@ -54,43 +71,70 @@ def engines():
     return ref, port
 
 
-def test_configs_are_the_reference_configs():
-    ref, port = (reduced(get_config("qwen3-1.7b")),
-                 t_reduced(t_get_config("qwen3-1.7b")))
+@pytest.fixture(scope="module")
+def engines():
+    return _engines("qwen3-1.7b")
+
+
+@pytest.fixture(scope="module", params=VARIANTS)
+def family(request):
+    return _engines(request.param)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_are_the_reference_configs(arch):
+    ref, port = reduced(get_config(arch)), t_reduced(t_get_config(arch))
     assert dataclasses.asdict(ref) == dataclasses.asdict(port)
-    full, tfull = get_config("qwen3-1.7b"), t_get_config("qwen3-1.7b")
+    full, tfull = get_config(arch), t_get_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(tfull)
     assert tfull.padded_vocab == full.padded_vocab
-    assert tfull.resolved_head_dim == 128
+    assert tfull.resolved_head_dim == full.resolved_head_dim
+    assert tfull.param_count() == full.param_count()
 
 
-def test_converted_params_match_shapes(engines):
-    ref, port = engines
+def test_registered_archs_are_the_dense_family():
+    from repro_torch.configs import list_configs
+    assert list_configs() == sorted(ARCHS)
+    assert t_get_config("storinfer-paper-8b").param_count() == \
+        pytest.approx(8.03e9, rel=1e-3)
+
+
+def test_converted_params_match_shapes(family):
+    """Every reference leaf lands in the port with its shape and numbers:
+    ``lm_head`` for the untied archs, the q/k/v biases where the arch has
+    them, ``w3`` only for a gated MLP."""
+    ref, port = family
+    cfg = port.cfg
     flat = jax.tree_util.tree_leaves_with_path(ref.params)
     n_ref = sum(int(np.prod(a.shape)) for _, a in flat)
-    n_port = sum(t.numel() for t in _leaves(port.params))
+    n_port = sum(t.numel() for t in tree_leaves(port.params))
     assert n_ref == n_port
     assert len(port.params["blocks"]) == 2
-    wq = np.asarray(ref.params["blocks"]["attn"]["wq"]["w"][1])
-    assert np.array_equal(port.params["blocks"][1]["attn"]["wq"]["w"].numpy(),
-                          wq)
-
-
-def _leaves(x):
-    if isinstance(x, dict):
-        for v in x.values():
-            yield from _leaves(v)
-    elif isinstance(x, list):
-        for v in x:
-            yield from _leaves(v)
-    else:
-        yield x
+    assert ("lm_head" in port.params) == (not cfg.tie_embeddings)
+    if not cfg.tie_embeddings:
+        assert np.array_equal(port.params["lm_head"]["w"].numpy(),
+                              np.asarray(ref.params["lm_head"]["w"]))
+    for blk in range(2):
+        attn = port.params["blocks"][blk]["attn"]
+        for name in ("wq", "wk", "wv", "wo"):
+            want = ref.params["blocks"]["attn"][name]
+            assert set(attn[name]) == set(want)
+            for leaf in want:
+                assert np.array_equal(attn[name][leaf].numpy(),
+                                      np.asarray(want[leaf][blk]))
+        assert ("b" in attn["wq"]) == cfg.attn_bias
+        assert ("w3" in port.params["blocks"][blk]["mlp"]) == cfg.gated_mlp
+    hd = cfg.resolved_head_dim
+    assert tuple(port.params["blocks"][0]["attn"]["wq"]["w"].shape) == \
+        (cfg.d_model, cfg.n_heads * hd)
+    assert tuple(port.params["blocks"][0]["attn"]["wk"]["w"].shape) == \
+        (cfg.d_model, cfg.n_kv_heads * hd)
 
 
 @pytest.mark.parametrize("prompt", PROMPTS[:3])
-def test_prefill_logits_and_cache_match(engines, prompt):
+def test_prefill_logits_and_cache_match(family, prompt):
     """XLA and torch sum in different orders: logits within 1e-4."""
-    ref, port = engines
+    ref, port = family
     ids = ref.tok.encode(prompt, bos=True)
     lg, cache = ref._prefill(ref.params, jnp.asarray([ids], jnp.int32))
     tlg, tcache = port._prefill(port.tokens(ids))
@@ -104,8 +148,8 @@ def test_prefill_logits_and_cache_match(engines, prompt):
 
 
 @pytest.mark.parametrize("prompt", PROMPTS[:4])
-def test_greedy_session_tokens_identical(engines, prompt):
-    ref, port = engines
+def test_greedy_session_tokens_identical(family, prompt):
+    ref, port = family
     s = ref.start_session(prompt, max_new=24)
     t = port.start_session(prompt, max_new=24)
     while not s.done:

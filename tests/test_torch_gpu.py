@@ -53,7 +53,17 @@ FLASH_SHAPES = [
     (3, 37, 37, 4, 4, 200, True),       # 64-row blocks at D = 200
     (1, 300, 300, 16, 8, 128, True),    # the LM engine's prefill (TorchLM)
     (1, 512, 512, 16, 8, 128, True),    # ... at its max_len 512
-]
+] + [(1, 160, 160, h, hk, d, True) for h, hk, d in (
+    (32, 8, 128),                       # storinfer-paper-8b's prefill
+    (32, 8, 64),                        # storinfer-paper-1b's: D = 64
+    (24, 8, 128),                       # llama3.2-3b's: G = 3
+    (36, 4, 128),                       # starcoder2-7b's: G = 9
+    (40, 8, 128))]                      # qwen2.5-32b's: G = 5
+# the dense family's decode at full width over a 160-row cache
+DENSE_DECODE_SHAPES = [(4, 160, h, hk, d, 8) for h, hk, d in (
+    (32, 8, 128), (32, 8, 64), (24, 8, 128), (36, 4, 128), (40, 8, 128))]
+DENSE_ARCHS = ["storinfer-paper-8b", "storinfer-paper-1b", "llama3.2-3b",
+               "starcoder2-7b", "qwen2.5-32b"]
 
 
 def _t(a):
@@ -187,7 +197,7 @@ def test_gpu_mips_topk_int8_copies_no_store(cuda):
     (4, 160, 16, 8, 192, 8),    # deepseek-v2-lite's 192-wide heads
     (2, 40, 16, 2, 256, 20),    # the widest head dim, 20 splits
     (2, 50, 8, 8, 200, 3),      # D = 200: two 16-byte chunks a lane (f32)
-])
+] + DENSE_DECODE_SHAPES)
 def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
                                                    Hkv, D, ns):
     """The one launch ops.decode_attention makes (splits and their merge)
@@ -434,6 +444,160 @@ def test_gpu_engine_greedy_tokens_match_cpu(cuda):
     assert outs[0] == outs[1]
     assert ops.decode_attention.launches > n0
     assert ops.flash_attention.launches == f0 + cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_gpu_dense_family_greedy_tokens_match_cpu(cuda, arch):
+    """Each other dense arch's ``reduced()`` config (untied heads, QKV
+    bias, the GELU MLP) on the card and on the CPU: the same greedy
+    tokens through a session (the f32 cache; on the batch scheduler's
+    bf16 cache B3 and the plain version round differently, within 1e-2,
+    which may flip a near-tied argmax)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    tok = Tokenizer.from_texts(["what is the height of aurora bridge",
+                                "who founded the meridian institute"])
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              vocab_size=tok.vocab_size, n_layers=2)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    prompts = ["what is the height of aurora bridge?",
+               "who founded the meridian institute?"]
+    outs = []
+    f0 = ops.flash_attention.launches
+    for p in (params, _to(params, cuda)):
+        e = Engine(cfg, p, tok, max_len=64, chunk=4)
+        ids = []
+        for prompt in prompts:
+            s = e.start_session(prompt, max_new=20)
+            while not s.done:
+                s.step_chunk()
+            ids.append(s.out_ids)
+        outs.append(ids)
+    assert outs[0] == outs[1] and all(len(i) > 4 for i in outs[0])
+    assert ops.flash_attention.launches > f0
+
+
+def _teacher_forced_logits(cfg, params, tok, prompts, out_ids, max_len):
+    """The batch scheduler's path for one wave (each prompt prefilled and
+    written into a slot of a ``cfg.dtype`` cache, then ``decode_step``
+    over all slots), each step fed the given tokens: the prefill's last
+    logits (B, V) and each decode step's (n, B, V), on the CPU."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    e = Engine(cfg, params, tok, max_len=max_len)
+    ids = [tok.encode(p, bos=True) for p in prompts]
+    cache = M.init_cache(cfg, len(ids), max_len, device=e.device)
+    first = []
+    for slot, i in enumerate(ids):
+        logits, one = e._prefill(e.tokens(i))
+        e._write_slot(cache, one, slot)
+        first.append(logits[0, -1])
+    live = torch.ones(len(ids), dtype=torch.bool, device=e.device)
+    steps = []
+    with torch.no_grad():
+        for t in range(min(len(o) for o in out_ids) - 1):
+            token = torch.tensor([[o[t]] for o in out_ids], device=e.device)
+            logits, cache = M.decode_step(cfg, params, token, cache,
+                                          len(ids[0]) + t, live)
+            steps.append(logits[:, -1])
+    return torch.stack(first).cpu(), torch.stack(steps).cpu()
+
+
+# The 2-layer reduced configs' logits are of unit scale (std 1). Through
+# the bf16 cache B3 rounds the unnormalised exp(s - m) to bf16 before P.V
+# where the plain version rounds the normalised probability (the 1e-2
+# contract on attention outputs), and the output is rounded to bf16 after
+# it, so an element may land one bf16 ulp (2^-8 relative) away; the output
+# projection, the MLP and the head sum many such. The kernel's function
+# run on the CPU (decode_partials_plain, which rounds as the kernel does)
+# lands a few hundredths from the plain version on these logits.
+TOL_LOGITS_BF16 = 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_gpu_dense_family_bf16_batch_logits_match_cpu(cuda, arch):
+    """The batch scheduler's bf16-cache path of each other dense arch's
+    ``reduced()`` config (untied heads, QKV bias, the GELU MLP) on the
+    card, teacher-forced with the CPU scheduler's greedy tokens: every
+    step's logits within TOL_LOGITS_BF16 of the CPU's, so a token the two
+    pick differently is a near-tie."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    tok = Tokenizer.from_texts(["what is the height of aurora bridge",
+                                "who founded the meridian institute"])
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              vocab_size=tok.vocab_size, n_layers=2)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    # one wave: both prompts tokenize to 9 ids
+    prompts = ["what is the height of aurora bridge?",
+               "who founded the meridian institute of aurora?"]
+    s = Engine(cfg, params, tok, max_len=64, chunk=4).start_batch_session(
+        prompts, max_new=20)
+    assert s.sched.cache["k"].dtype == torch.bfloat16
+    s.run()
+    out_ids = [r.out_ids for r in s.results()]
+    want = _teacher_forced_logits(cfg, params, tok, prompts, out_ids, 64)
+    # the teacher-forced CPU run is the scheduler's: it picks its tokens
+    assert want[0].argmax(-1).tolist() == [o[0] for o in out_ids]
+    assert [w.argmax(-1).tolist() for w in want[1]] == [
+        [o[t] for o in out_ids] for t in range(1, len(want[1]) + 1)]
+    assert len(want[1]) >= 4
+    n0 = ops.decode_attention.launches
+    got = _teacher_forced_logits(cfg, _to(params, cuda), tok, prompts,
+                                 out_ids, 64)
+    assert ops.decode_attention.launches - n0 == len(want[1]) * cfg.n_layers
+    picks = got[1].argmax(-1) != want[1].argmax(-1)
+    top2 = want[1].topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1])[picks]
+    print(f"{arch}: bf16-cache logits, card vs CPU over {len(want[1])} "
+          f"steps x {len(prompts)} slots: max abs difference "
+          f"{float((got[1] - want[1]).abs().max()):.4e} (prefill "
+          f"{float((got[0] - want[0]).abs().max()):.4e}); the card picks "
+          f"another token at {int(picks.sum())}, where the CPU's top-2 gap "
+          f"is {[round(float(x), 5) for x in gaps]}")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=TOL_LOGITS_BF16)
+
+
+@pytest.mark.gpu
+def test_gpu_train_contrastive_matches_cpu(cuda):
+    """Five steps of MiniLM contrastive training on the card (the plain
+    attention under autograd, TF32 off) against the CPU from the same
+    weights and batch draws: losses within 1e-4 relative, parameters
+    within 1e-4."""
+    from repro_torch.core.embedder import EncoderCfg, MiniLMEncoder
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.core.kb import build_kb, render_query
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models.convert import tree_leaves
+    exact_fp32()
+    kb = build_kb("squad", n_docs=6)
+    tok = Tokenizer.from_texts([d.text() for d in kb.docs], max_vocab=512)
+    cfg = EncoderCfg(vocab_size=tok.vocab_size, dim=64, n_layers=2,
+                     n_heads=4, d_ff=128, max_len=24)
+    pairs = [(render_query(f, 0), render_query(f, 2)) for f in kb.facts[:64]]
+    cpu = MiniLMEncoder(tok, cfg, seed=0, device="cpu")
+    gpu = MiniLMEncoder(tok, cfg, params=_to(cpu.params, cuda), device=cuda)
+    n0 = ops.flash_attention.launches
+    got = gpu.train_contrastive(pairs, steps=5, bs=16, lr=2e-3)
+    assert ops.flash_attention.launches == n0      # no kernel under autograd
+    want = cpu.train_contrastive(pairs, steps=5, bs=16, lr=2e-3)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -5,7 +5,9 @@ stream — same hit/miss split, same hit rows, same greedy miss text (the
 port's engine gets the reference engine's weights through
 ``params_from_jax``) — plus the port's import isolation: nothing of JAX
 or of the ``repro`` package may load when the port serves, and
-``chip_smoke.py`` refuses to run without a card."""
+``chip_smoke.py`` refuses to run without a card; and the facade's
+configuration and capability helpers (``SystemCfg``'s staged-pipeline
+overrides, ``IndexCaps``/``index_caps``) against the reference's."""
 import ast
 import dataclasses
 import os
@@ -21,7 +23,11 @@ from repro.api import EngineCfg as JEngineCfg
 from repro.api import StorInfer as JStorInfer
 from repro.api import SystemCfg as JSystemCfg
 from repro.core.kb import build_kb, sample_user_queries
-from repro_torch.api import EngineCfg, StorInfer, SystemCfg, tier_of
+from repro.api import index_caps as j_index_caps
+from repro.core.runtime import BatchedRuntimeCfg as JBatchedRuntimeCfg
+from repro_torch.api import (EngineCfg, IndexCaps, StorInfer, SystemCfg,
+                             index_caps, tier_of)
+from repro_torch.core.runtime import BatchedRuntimeCfg
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.tokenizer import Tokenizer
 from repro_torch.models.convert import params_from_jax
@@ -114,6 +120,63 @@ def test_engine_same_greedy_miss_text(built):
             assert si.stats().pipeline["search_batches"] >= 1
 
 
+_SYSTEM_CFGS = [
+    {},
+    {"queue_depth": 8},
+    {"async_writeback": False},
+    {"queue_depth": 8, "async_writeback": True},
+    {"decode_slots": 2, "queue_depth": 3, "async_writeback": False},
+    {"s_th_run": 0.8, "decode_slots": 6},
+    {"batched": "custom", "queue_depth": 5},
+    {"batched": "custom"},
+]
+
+
+@pytest.mark.parametrize("kw", _SYSTEM_CFGS,
+                         ids=[",".join(k) or "default" for k in _SYSTEM_CFGS])
+def test_system_cfg_maps_to_the_reference_batched_cfg(kw):
+    """``decode_slots``, ``queue_depth`` and ``async_writeback`` override
+    ``cfg.batched`` (and ``s_th_run`` both runtimes) as in the reference:
+    both packages give the same ``BatchedRuntimeCfg`` field for field."""
+    jkw, tkw = dict(kw), dict(kw)
+    if kw.get("batched") == "custom":
+        custom = dict(max_batch=7, add_misses=True, rebuild_every=9,
+                      queue_depth=11, async_writeback=False)
+        jkw["batched"] = JBatchedRuntimeCfg(**custom)
+        tkw["batched"] = BatchedRuntimeCfg(**custom)
+    j, t = JSystemCfg(**jkw), SystemCfg(**tkw)
+    assert dataclasses.asdict(t.batched) == dataclasses.asdict(j.batched)
+    assert dataclasses.asdict(t.runtime) == dataclasses.asdict(j.runtime)
+    for k in ("queue_depth", "async_writeback", "decode_slots"):
+        if k in kw:
+            assert getattr(t.batched, k) == kw[k]
+
+
+def test_index_caps_are_the_reference_caps():
+    """IVF saves and loads, flat does neither, the incremental dedup
+    index adds (the reference's ``tests/test_api.py`` case), and each
+    flag equals the reference's on the reference's own tiers."""
+    import repro_torch
+    from repro.core.index import FlatIndex as JFlat
+    from repro.core.index import IncrementalIndex as JIncremental
+    from repro.core.index import IVFIndex as JIVF
+    from repro_torch.core.index import FlatIndex, IncrementalIndex, IVFIndex
+    x = np.random.default_rng(0).normal(size=(300, 16)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    flat = FlatIndex(x, on="cpu")
+    ivf = IVFIndex(x, n_lists=4, nprobe=2, on="cpu")
+    assert repro_torch.IndexCaps is IndexCaps
+    assert repro_torch.index_caps is index_caps
+    assert index_caps(ivf) == IndexCaps(save=True, load=True, add=False)
+    assert index_caps(flat) == IndexCaps(save=False, load=False, add=False)
+    assert index_caps(IncrementalIndex(16, device="cpu")).add
+    assert tier_of(IncrementalIndex(16, device="cpu")) == "incremental"
+    for t, j in ((flat, JFlat(x)), (ivf, JIVF(x, n_lists=4, nprobe=2)),
+                 (IncrementalIndex(16, device="cpu"), JIncremental(16))):
+        assert dataclasses.astuple(index_caps(t)) == \
+            dataclasses.astuple(j_index_caps(j))
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -127,6 +190,11 @@ def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
+             if "repro_torch" in f.parts}
+    assert {"core/metrics.py", "core/latency.py", "core/embedder.py",
+            "configs/storinfer_paper.py", "configs/llama3_2_3b.py",
+            "configs/starcoder2_7b.py", "configs/qwen2_5_32b.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

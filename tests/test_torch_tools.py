@@ -77,3 +77,53 @@ def test_build_breakdown_stages_account_for_the_build(tmp_path):
     assert out["window"]["mode"] == "ivf" and out["window"]["rows"] >= 400
     assert out["flat_pairs_per_sec"] > 0 and out["ivf_pairs_per_sec"] > 0
     assert not (tmp_path / "store").exists()
+
+
+def test_wheel_ships_the_kernel_sources(tmp_path):
+    """A wheel built from a copy of the tree lists every CUDA source of
+    the port, and the installed package finds them beside itself and
+    builds its kernels into a per-user cache directory (not next to
+    site-packages). Built in ``tmp_path``: setuptools writes ``build/``
+    and ``*.egg-info`` where it builds."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import zipfile
+    src = tmp_path / "tree"
+    src.mkdir()
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy(ROOT / name, src / name)
+    shutil.copytree(ROOT / "src", src / "src", ignore=shutil.ignore_patterns(
+        "__pycache__", "*.egg-info"))
+    out = subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", "--no-deps",
+         "--no-build-isolation", "--no-index", "--no-cache-dir", "-w",
+         str(tmp_path / "dist"), str(src)],
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    (wheel,) = (tmp_path / "dist").glob("*.whl")
+    names = set(zipfile.ZipFile(wheel).namelist())
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    want = {f"repro_torch/csrc/{p.name}" for p in csrc.iterdir()
+            if p.suffix in (".cu", ".cuh")}
+    assert len(want) >= 6 and want <= names
+    site = tmp_path / "site"
+    zipfile.ZipFile(wheel).extractall(site)
+    env = dict(os.environ, PYTHONPATH=str(site),
+               XDG_CACHE_HOME=str(tmp_path / "cache"))
+    out = subprocess.run(
+        [sys.executable, "-c", "import json; from repro_torch.kernels "
+         "import ops; print(ops.BUILD_DIR); print(json.dumps(sorted(p.name "
+         "for p in ops.CSRC.iterdir())))"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    build_dir, listed = out.stdout.splitlines()
+    assert build_dir == str(tmp_path / "cache" / "repro_torch" / "kernels")
+    assert sorted(n.split("/")[-1] for n in want) == json.loads(listed)
+    # in a writable checkout the kernels keep building into its build/
+    from repro_torch.kernels import ops
+    if os.access(ROOT, os.W_OK):
+        assert ops.BUILD_DIR == ROOT / "build" / "kernels"
