@@ -54,10 +54,22 @@ result line is printed only when every phase passed:
    greedy tokens at batch 1 and 4;
 10. minilm train — ``MiniLMEncoder.train_contrastive`` on the card over
    the KB's paraphrase pairs; its first step against the CPU's, and the
-   query groups' top-1 scores before and after.
+   query groups' top-1 scores before and after;
+11. slice moe — deepseek-v2-lite-16b (MLA + MoE) at full width and depth
+   behind phase 8's store, stream and system, with phase 8's readings;
+   its prefill runs MLA's expanded heads on B4 (v zero-padded to the q/k
+   width), its absorbed decode is plain PyTorch, so B3 shows 0 launches
+   there (printed with the reason);
+12. families — grok-1-314b (moe with GQA) at full width with the 3 of its
+   64 layers that fit (a ``reduced:`` line), mamba2-130m (ssm) and
+   zamba2-1.2b (hybrid) at full width and depth, as phase 9 runs the
+   dense family; mamba2 is attention-free and launches no kernel.
+
+Phase 3 also holds B3 and B4 at grok-1's and zamba2's head shapes and B4
+at MLA's (q/k 192, v 128).
 
 The kernels' launch counters are set to 0 just before each serving run,
-each build and each engine or training run of phases 8-10 and read just
+each build and each engine or training run of phases 8-12 and read just
 after it: every kernel of the path must have run there. The
 last lines are one JSON line of per-kernel numbers, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -99,11 +111,21 @@ DENSE_HEADS = [("storinfer-paper-8b", 32, 8, 128),
                ("llama3.2-3b", 24, 8, 128),
                ("starcoder2-7b", 36, 4, 128),
                ("qwen2.5-32b", 40, 8, 128)]
+# the moe, ssm and hybrid families' GQA shapes at full width: grok-1's
+# 48/8 heads of 128 (G = 6) and zamba2's shared block, 32/32 of 64 (G = 1)
+FAMILY_HEADS = [("grok-1-314b", 48, 8, 128), ("zamba2-1.2b", 32, 32, 64)]
+# deepseek-v2-lite's MLA prefill on B4: 16 heads, q/k 192 (nope 128 + rope
+# 64), v 128 (zero-padded to 192 by the wrapper)
+MLA_SHAPE = (1, 160, 160, 16, 16, 192, 128)
 # phase 9: the rest of the dense family at full width; qwen2.5-32b's 64
 # layers in fp32 (122 GiB) do not fit in 80 GB, so it runs 16 of them
 DENSE_FAMILY = [("storinfer-paper-1b", None), ("llama3.2-3b", None),
                 ("starcoder2-7b", None), ("qwen2.5-32b", 16)]
 PAPER_8B = "storinfer-paper-8b"
+MOE_ARCH = "deepseek-v2-lite-16b"  # phase 11
+# phase 12: grok-1-314b at full width, fp32: 18.3 GiB a layer plus 6.0 GiB
+# of embedding and head, so 3 of its 64 layers fit in 80 GB and 4 do not
+GROK_LAYERS = 3
 QUEUE_DEPTH = 16             # phase 8's staged-pipeline queues (SystemCfg)
 # phase 10: MiniLM contrastive training on the card. From random weights
 # the full-size encoder maps every text near one vector (the position
@@ -488,6 +510,11 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
                 f"{arch} Hq={h} Hkv={hk} D={d} T=160 f32 cache", d, h, hk)
         b3_case(T, rag160, torch.bfloat16, ns, TOL_DECODE_BF16,
                 f"{arch} Hq={h} Hkv={hk} D={d} T=160 bf16 cache", d, h, hk)
+    for arch, h, hk, d in FAMILY_HEADS:     # phase 12's GQA decode
+        b3_case(T, rag160, torch.float32, ns, TOL_DECODE_F32,
+                f"{arch} Hq={h} Hkv={hk} D={d} T=160 f32 cache", d, h, hk)
+        b3_case(T, rag160, torch.bfloat16, ns, TOL_DECODE_BF16,
+                f"{arch} Hq={h} Hkv={hk} D={d} T=160 bf16 cache", d, h, hk)
     # the LM engine's session (TorchLM in phase 7): B 1, an f32 cache of
     # T = 512, lengths up to and past T - 1 (a decode past max_len passes
     # lengths of T and more; the kernel clamps them to T - 1)
@@ -539,17 +566,19 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
     lib_fa = ops._lib("flash_attention")
 
     def b4_case(shape, causal, dt, label):
-        B_, S_, T_, Hq_, Hkv_, D_ = shape
+        """``shape`` (B, S, T, Hq, Hkv, D[, Dv]): v is Dv wide (MLA's)."""
+        B_, S_, T_, Hq_, Hkv_, D_ = shape[:6]
+        Dv_ = shape[6] if len(shape) > 6 else D_
         qq, kk, vv = (torch.randn(sh, generator=g, device=dev).to(dt)
                       for sh in ((B_, S_, Hq_, D_), (B_, T_, Hkv_, D_),
-                                 (B_, T_, Hkv_, D_)))
+                                 (B_, T_, Hkv_, Dv_)))
         got = ops.flash_attention(qq, kk, vv, causal)
         want = fa.flash_attention_plain(qq, kk, vv, causal)
         torch.cuda.synchronize()
         tol = TOL_FLASH_F32 if dt == torch.float32 else TOL_FLASH_BF16
         e = float((got.float() - want.float()).abs().max())
-        check(got.dtype == dt and torch.allclose(got.float(), want.float(),
-                                                 rtol=tol, atol=tol),
+        check(got.dtype == dt and got.shape == want.shape and torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol),
               f"B4 {label}: differs from plain (max {e})")
         print(f"B4 {label}: ok max_abs_err={e:.3e} (tol {tol})")
         return e, (qq, kk, vv)
@@ -605,9 +634,12 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
                 f"wide D={Dw} prefill S=T=160 f32 causal")
         b4_case((2, 70, 130, 6, 2, Dw), False, torch.bfloat16,
                 f"wide D={Dw} S=70 T=130 bf16 non-causal")
-    for arch, h, hk, d in DENSE_HEADS:
+    for arch, h, hk, d in DENSE_HEADS + FAMILY_HEADS:
         b4_case((1, 160, 160, h, hk, d), True, torch.float32,
                 f"{arch} prefill S=T=160 Hq={h} Hkv={hk} D={d} f32 causal")
+    for dt in (torch.float32, torch.bfloat16):   # phase 11's MLA prefill
+        b4_case(MLA_SHAPE, True, dt, "deepseek-v2-lite-16b MLA prefill "
+                f"S=T=160 H=16 q/k D=192 v Dv=128 {dt} causal")
     ms, plain, lib, calls, b_ms, b_by = b4_timing(*enc_in, False, 50, flush)
     rows.append(dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/csrc/flash_attention.cu",
@@ -1372,21 +1404,69 @@ def param_bytes(params):
 
 
 def describe(cfg):
-    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-            f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.resolved_head_dim}, "
-            f"{'tied' if cfg.tie_embeddings else 'untied'} head over "
-            f"{cfg.padded_vocab} ids, "
-            f"{'gated ' if cfg.gated_mlp else ''}{cfg.mlp_act} MLP "
-            f"{cfg.d_ff}{', QKV bias' if cfg.attn_bias else ''}"
+    head = (f"{'tied' if cfg.tie_embeddings else 'untied'} head over "
+            f"{cfg.padded_vocab} ids")
+    ssm = (f"Mamba2 SSD {cfg.n_ssm_heads} heads of {cfg.ssm_head_dim}, "
+           f"state {cfg.ssm_state}, conv {cfg.ssm_conv}")
+    if cfg.family == "ssm":
+        return f"{cfg.n_layers} layers, d_model {cfg.d_model}, {ssm}, {head}"
+    if cfg.use_mla:
+        attn = (f"MLA {cfg.n_heads} heads (q/k {cfg.qk_nope_head_dim} + "
+                f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}, kv rank "
+                f"{cfg.kv_lora_rank})")
+    else:
+        attn = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+                f"{cfg.resolved_head_dim}")
+    if cfg.family == "moe":
+        ffn = (f"{cfg.n_experts} experts of {cfg.d_ff_expert} (top "
+               f"{cfg.experts_per_tok}"
+               f"{f', {cfg.n_shared_experts} shared' if cfg.n_shared_experts else ''}"
+               f"){f', {cfg.first_dense_layers} leading dense layer of {cfg.d_ff_dense}' if cfg.first_dense_layers else ''}")
+    else:
+        ffn = (f"{'gated ' if cfg.gated_mlp else ''}{cfg.mlp_act} MLP "
+               f"{cfg.d_ff}")
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {ssm}; one "
+                f"shared block ({attn}, {ffn}) before layers 0, {k}, "
+                f"{2 * k}, ... ({-(-cfg.n_layers // k)} invocations), {head}")
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {attn}, {head}, "
+            f"{ffn}{', QKV bias' if cfg.attn_bias else ''}"
             f"{', qk-norm' if cfg.qk_norm else ''}")
 
 
 def phase_paper8b(torch, np, args, card, corpus, dev):
     """8: the paper's own serving model, storinfer-paper-8b at full width
     and depth (fp32 random weights from ``--seed``), as the fallback LM
-    behind the paper's 150,000-pair fp16 store; phase 4's stream and
-    system (flat index, 4 decode slots, write-back), the staged
-    pipeline's queues set through ``SystemCfg.queue_depth``."""
+    behind the paper's 150,000-pair fp16 store."""
+    return {"paper8b": serve_full_model(
+        torch, np, args, card, corpus, dev, PAPER_8B, "slice paper8b",
+        ("mips_topk", "decode_attention", "flash_attention"))}
+
+
+def phase_moe(torch, np, args, card, corpus, dev):
+    """11: the moe family behind the store: deepseek-v2-lite-16b (MLA +
+    MoE) at full width and depth, fp32 random weights from ``--seed``.
+    Its prefill runs MLA's expanded heads on B4; its decode is MLA's
+    absorbed attention over the compressed cache, plain PyTorch, so B3
+    must show no launch there."""
+    return {"moe": serve_full_model(
+        torch, np, args, card, corpus, dev, MOE_ARCH, "slice moe",
+        ("mips_topk", "flash_attention"), absent={
+            "decode_attention": "MLA's absorbed decode (one latent head, "
+            "q/k 576 and v 512 wide, past B3's 256) is plain PyTorch, as "
+            "it is plain einsums in the reference"})}
+
+
+def serve_full_model(torch, np, args, card, corpus, dev, arch, label, need,
+                     absent=None):
+    """``arch`` at full width and depth as the fallback LM behind the
+    paper's 150,000-pair fp16 store; phase 4's stream and system (flat
+    index, 4 decode slots, write-back), the staged pipeline's queues set
+    through ``SystemCfg.queue_depth``: latencies, decode rates, a profiled
+    decode chunk, the §4 effective latency beside the analytic H100
+    model, peak memory. The kernels in ``need`` must launch on the
+    serving run; those in ``absent`` (name -> why) must not."""
     from repro_torch.api import EngineCfg, StorInfer, SystemCfg
     from repro_torch.configs import get_config
     from repro_torch.core import latency
@@ -1394,11 +1474,10 @@ def phase_paper8b(torch, np, args, card, corpus, dev):
     from repro_torch.core.runtime import BatchedRuntimeCfg
     from repro_torch.launch.serve import write_kb_store
 
-    label = "slice paper8b"
     kb, pairs, tok, stream, exact = corpus
-    work = ROOT / "build" / "chip_smoke" / "paper8b"
+    work = ROOT / "build" / "chip_smoke" / arch
     shutil.rmtree(work, ignore_errors=True)
-    ecfg = EngineCfg(arch=PAPER_8B, smoke=False, max_len=160, chunk=8,
+    ecfg = EngineCfg(arch=arch, smoke=False, max_len=160, chunk=8,
                      seed=args.seed)
     cfg = SystemCfg(index="flat", s_th_run=0.9, decode_slots=4,
                     queue_depth=QUEUE_DEPTH, device=str(dev),
@@ -1412,7 +1491,7 @@ def phase_paper8b(torch, np, args, card, corpus, dev):
                    emb_dtype="float16").close()
     t_write = time.perf_counter() - t0
     print(f"{label}: device memory held before the build "
-          f"{gib(torch.cuda.memory_allocated()):.3f} GiB (phases 4-7 "
+          f"{gib(torch.cuda.memory_allocated()):.3f} GiB (earlier phases "
           "released)")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1422,9 +1501,8 @@ def phase_paper8b(torch, np, args, card, corpus, dev):
     with si:
         engine = si.engine
         mcfg = engine.cfg
-        check(mcfg == get_config(PAPER_8B),
-              f"{label}: the engine is not {PAPER_8B} at full width and "
-              "depth")
+        check(mcfg == get_config(arch),
+              f"{label}: the engine is not {arch} at full width and depth")
         n_par, n_bytes = param_bytes(engine.params)
         print(f"{label}: {mcfg.name}: {describe(mcfg)}; "
               f"{n_par / 1e9:.3f} B parameters, {gib(n_bytes):.2f} GiB fp32 "
@@ -1433,9 +1511,14 @@ def phase_paper8b(torch, np, args, card, corpus, dev):
               f"{t_open:.2f} s")
         _, counts, out, res = serve_slice(torch, np, si, stream, exact,
                                           dict(pairs), label)
-        for n in ("mips_topk", "decode_attention", "flash_attention"):
+        for n in need:
             check(counts[n] > 0, f"{label}: kernel {n} was not launched on "
                   "the main path")
+        for n, why in (absent or {}).items():
+            check(counts[n] == 0, f"{label}: kernel {n} launched "
+                  f"{counts[n]} times where it has no call site")
+            print(f"{label}: {n} launched 0 times on this slice, as it must: "
+                  f"{why}")
         # a stage's depth counts its bounded queue and what the stage
         # holds: the search stage a microbatch, the others one item
         stages = si.stats().pipeline["stages"]
@@ -1466,8 +1549,16 @@ def phase_paper8b(torch, np, args, card, corpus, dev):
         eff = latency.effective_latency(hit_rate, hit_s, miss_s)
         prompt_tokens = int(np.median([len(engine.tok.encode(t, bos=True))
                                        for t in misses]))
-        model = latency.llm_latency(latency.H100, n_par, prompt_tokens,
-                                    MAX_NEW, dtype_bytes=4)
+
+        def modeled(n):
+            m = latency.llm_latency(latency.H100, n, prompt_tokens, MAX_NEW,
+                                    dtype_bytes=4)
+            return (f"llm_latency(H100, {n / 1e9:.3f}e9, {prompt_tokens} "
+                    f"prompt tokens, {MAX_NEW} out, fp32): prefill "
+                    f"{m['prefill_s'] * 1e3:.2f} ms + decode "
+                    f"{m['decode_s'] * 1e3:.1f} ms = "
+                    f"{m['total_s'] * 1e3:.1f} ms")
+
         print(f"{label}: §4 effective latency {eff * 1e3:.1f} ms at this "
               f"stream's hit rate {hit_rate:.3f} ({out['hits']} of "
               f"{len(stream)}; a constructed mix of exact, 'hi, '-prefixed "
@@ -1475,24 +1566,50 @@ def phase_paper8b(torch, np, args, card, corpus, dev):
               f"{hit_rate:.3f} x hit p50 {hit_s * 1e3:.2f} ms + "
               f"{1 - hit_rate:.3f} x miss p50 {miss_s * 1e3:.1f} ms, "
               f"{1 - eff / miss_s:.3f} below the miss p50 at this hit rate; "
-              f"analytic model llm_latency(H100, {n_par / 1e9:.3f}e9, "
-              f"{prompt_tokens} prompt tokens, {MAX_NEW} out, fp32): prefill "
-              f"{model['prefill_s'] * 1e3:.2f} ms + decode "
-              f"{model['decode_s'] * 1e3:.1f} ms = "
-              f"{model['total_s'] * 1e3:.1f} ms on {card}")
+              f"analytic model {modeled(n_par)} on {card}")
+        if mcfg.family == "moe":
+            print(f"{label}: the analytic model at the "
+                  f"{mcfg.active_param_count() / 1e9:.3f} B parameters a "
+                  f"token routes through, {modeled(mcfg.active_param_count())}"
+                  "; it understates this engine, whose decode step reads "
+                  f"all {mcfg.n_experts} experts' weights through the "
+                  "(E, C, d) dispatch buffer")
         peak = torch.cuda.max_memory_allocated()
         print(f"{label}: peak device memory {gib(peak):.3f} GiB on {card}")
         del engine
     del si
     release(torch)
     shutil.rmtree(work, ignore_errors=True)
-    return {"paper8b": counts}
+    return counts
 
 
 def phase_dense_family(torch, np, args, card, corpus, dev):
-    """9: the rest of the dense family at full width, each engine built
-    from ``init_model`` and ``Engine``: one KB prompt's prefill and
-    ``MAX_NEW`` greedy tokens at batch 1 and batch 4."""
+    """9: the rest of the dense family at full width: one KB prompt's
+    prefill (B4) and ``MAX_NEW`` greedy tokens (B3) at batch 1 and 4."""
+    return run_family(torch, np, args, card, corpus, dev, "dense family",
+                      [(arch, layers, None) for arch, layers in
+                       DENSE_FAMILY])
+
+
+def phase_families(torch, np, args, card, corpus, dev):
+    """12: grok-1-314b (moe with GQA; the layers that fit, at full width),
+    mamba2-130m (ssm) and zamba2-1.2b (hybrid) at full width and depth:
+    one KB prompt's prefill and ``MAX_NEW`` greedy tokens at batch 1 and
+    4. grok-1 and zamba2's shared block attend on B4 and B3; mamba2 has
+    no attention and launches no kernel."""
+    return run_family(torch, np, args, card, corpus, dev, "families", [
+        ("grok-1-314b", GROK_LAYERS, None),
+        ("mamba2-130m", None, "mamba2 is attention-free (SSD scan and "
+         "recurrent step in plain PyTorch, as in the reference)"),
+        ("zamba2-1.2b", None, None)])
+
+
+def run_family(torch, np, args, card, corpus, dev, phase, archs):
+    """Each of ``archs`` ((arch, layers or None for full depth, None or why
+    the arch launches no kernel)) at full width, its engine built from
+    ``init_model`` and ``Engine`` and released before the next one: one KB
+    prompt's prefill and ``MAX_NEW`` greedy tokens at batch 1 and batch 4,
+    prefill on B4 and decode on B3 unless the arch has no attention."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1502,8 +1619,8 @@ def phase_dense_family(torch, np, args, card, corpus, dev):
 
     tok, prompt = corpus[2], corpus[1][0][0]
     out = {}
-    for arch, layers in DENSE_FAMILY:
-        label = f"dense family {arch}"
+    for arch, layers, no_kernel in archs:
+        label = f"{phase} {arch}"
         full = get_config(arch)
         cfg = full if layers is None else dataclasses.replace(
             full, n_layers=layers)
@@ -1511,7 +1628,10 @@ def phase_dense_family(torch, np, args, card, corpus, dev):
             print(f"reduced: {arch} runs {layers} of its {full.n_layers} "
                   f"layers at full width (fp32 weights at full depth are "
                   f"{gib(4 * full.param_count()):.1f} GiB, more than the "
-                  "card's 80 GB)")
+                  f"card's 80 GB; {layers} layers are "
+                  f"{gib(4 * cfg.param_count()):.1f} GiB, "
+                  f"{layers + 1} would be "
+                  f"{gib(4 * dataclasses.replace(full, n_layers=layers + 1).param_count()):.1f})")
         release(torch)
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1553,9 +1673,15 @@ def phase_dense_family(torch, np, args, card, corpus, dev):
             0 <= i < cfg.padded_vocab for i in ids_out),
             f"{label}: token ids outside the padded vocab, or a request "
             f"without tokens ({n_out})")
-        check(counts["flash_attention"] > 0 and
-              counts["decode_attention"] > 0,
-              f"{label}: prefill or decode did not run on B4/B3 ({counts})")
+        if no_kernel is None:
+            check(counts["flash_attention"] > 0 and
+                  counts["decode_attention"] > 0,
+                  f"{label}: prefill or decode did not run on B4/B3 "
+                  f"({counts})")
+        else:
+            check(not any(counts.values()), f"{label}: launched a kernel "
+                  f"({counts}) where it has no call site")
+            print(f"{label}: no kernel launched, as it must be: {no_kernel}")
         out[arch] = counts
         del engine, logits
     release(torch)
@@ -1744,6 +1870,16 @@ def main():
     t10 = time.perf_counter()
     counts.update(phase_train(torch, np, args, card, corpus, dev))
     print(f"minilm train: phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    # -- phase 11: the moe family behind the paper store ---------------------
+    t11 = time.perf_counter()
+    counts.update(phase_moe(torch, np, args, card, corpus, dev))
+    print(f"slice moe: phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    # -- phase 12: grok-1, mamba2, zamba2 --------------------------------------
+    t12 = time.perf_counter()
+    counts.update(phase_families(torch, np, args, card, corpus, dev))
+    print(f"families: phase 12 took {time.perf_counter() - t12:.1f} s")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

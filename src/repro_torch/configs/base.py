@@ -4,11 +4,13 @@
 Every architecture the port serves is a ``ModelConfig`` in its own module
 under ``repro_torch.configs``; ``get_config(name)`` resolves it.
 ``reduced()`` produces the CPU-smoke-test variant of any config (same family
-/ same code paths, tiny dims). Only the dense family is ported so far, so
-the registered archs are its six: ``storinfer-paper-8b`` and
-``storinfer-paper-1b`` (the paper's own serving model and its on-device
-fallback), ``llama3.2-3b``, ``starcoder2-7b``, ``qwen2.5-32b`` and
-``qwen3-1.7b``.
+/ same code paths, tiny dims). The registered archs are the dense family's
+six (``storinfer-paper-8b`` and ``storinfer-paper-1b``, the paper's own
+serving model and its on-device fallback, ``llama3.2-3b``,
+``starcoder2-7b``, ``qwen2.5-32b``, ``qwen3-1.7b``), the moe family's
+``deepseek-v2-lite-16b`` (MLA) and ``grok-1-314b`` (GQA), the ssm
+family's ``mamba2-130m`` and the hybrid ``zamba2-1.2b``; the encdec and
+vlm families are not ported yet.
 """
 from __future__ import annotations
 
@@ -216,7 +218,8 @@ def list_configs() -> list:
 def _load_all() -> None:
     # importing the modules populates the registry via register()
     from repro_torch.configs import (  # noqa: F401
-        llama3_2_3b, qwen2_5_32b, qwen3_1_7b, starcoder2_7b, storinfer_paper)
+        deepseek_v2_lite_16b, grok_1_314b, llama3_2_3b, mamba2_130m,
+        qwen2_5_32b, qwen3_1_7b, starcoder2_7b, storinfer_paper, zamba2_1_2b)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,11 @@ layout through strides, so the head-major transposes of the reference's
 ``ops.flash_attention`` have no counterpart here. It carries the engine's
 prefill (causal) and the MiniLM encoder's layers (non-causal; the encoder
 attends to its padding tokens, as the reference does, so there is no
-key-padding mask).
+key-padding mask). The values may be narrower than the queries and keys
+(MLA's prefill: q/k 192 wide, v 128): the wrapper zero-pads v to the
+q/k width and returns the first ``v.shape[-1]`` output columns, which is
+exact, since an output column is the probabilities times that one value
+column.
 
 ``flash_attention_plain`` is the naive math the reference runs for the
 same call sites (``models/layers.py:gqa_scores_softmax_out`` with the
@@ -34,8 +38,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 
 
 def flash_attention_plain(q, k, v, causal: bool = True):
-    """q (B,S,Hq,D), k and v (B,T,Hkv,D) -> (B,S,Hq,D) in v's dtype; query
-    row i attends key j when j < T and, if ``causal``, j <= i."""
+    """q (B,S,Hq,D), k (B,T,Hkv,D), v (B,T,Hkv,Dv) -> (B,S,Hq,Dv) in v's
+    dtype; query row i attends key j when j < T and, if ``causal``,
+    j <= i."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
@@ -52,7 +57,8 @@ def flash_attention_plain(q, k, v, causal: bool = True):
 
 def flash_attention_cuda(lib, q, k, v, causal: bool = True):
     """Launch the kernel on ``q``'s current stream; same function as
-    ``flash_attention_plain``, output in q's dtype (the reference's)."""
+    ``flash_attention_plain`` (v's width ``Dv`` <= the q/k width), output
+    in q's dtype (the reference's)."""
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention kernel: inputs must be on one CUDA "
                          "device")
@@ -63,9 +69,9 @@ def flash_attention_cuda(lib, q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention kernel: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
     B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    if k.shape != (B, T, Hkv, D) or v.shape != k.shape or Hq % Hkv \
-            or min(S, T) < 1:
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, T, Hkv, D) or v.shape[:3] != k.shape[:3] or \
+            not 1 <= Dv <= D or Hq % Hkv or min(S, T) < 1:
         raise ValueError(f"flash_attention kernel: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if not 1 <= D <= MAX_HEAD_DIM:
@@ -75,7 +81,10 @@ def flash_attention_cuda(lib, q, k, v, causal: bool = True):
     if Dp != D:
         # the kernel takes D in steps of 8: zero columns leave every score
         # and the first D output columns as they are
-        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
+        q, k = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k))
+    if Dp != Dv:
+        # narrower values are zero-padded to the kernel's one width
+        v = torch.nn.functional.pad(v, (0, Dp - Dv))
     q, k, v = (aligned16(t) for t in (q, k, v))
     o = torch.empty((B, S, Hq, Dp), dtype=q.dtype, device=q.device)
     err = lib.flash_attention(
@@ -86,7 +95,7 @@ def flash_attention_cuda(lib, q, k, v, causal: bool = True):
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return o if Dp == D else o[..., :D]
+    return o if Dp == Dv else o[..., :Dv]
 
 
 def aligned16(t, contiguous: bool = False):

@@ -244,8 +244,9 @@ def decode_attention(q, k, v, lengths, n_splits: int = 8):
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """Model layout: q (B,S,Hq,D); k,v (B,T,Hkv,D) -> (B,S,Hq,D); causal
-    masks key j > query i (offset 0), non-causal attends to all T keys."""
+    """Model layout: q (B,S,Hq,D); k (B,T,Hkv,D), v (B,T,Hkv,Dv), Dv <= D
+    -> (B,S,Hq,Dv); causal masks key j > query i (offset 0), non-causal
+    attends to all T keys."""
     if _on_cuda(q, k, v):
         o = _fa.flash_attention_cuda(_lib("flash_attention"), q, k, v,
                                      causal)

@@ -9,8 +9,10 @@ one first (``write_kb_store``: the KB's question pairs, then seeded filler
 pairs up to ``--n-pairs`` rows, which sizes a store in seconds; the
 offline generator is ``launch/precompute.py``). It then serves a user-query stream two ways: the paper's
 sequential race, and the staged serving pipeline (``serve()`` /
-``submit()``), reporting hit rate and hit/miss latency. ``--no-smoke``
-serves the full arch config instead of the reduced smoke one.
+``submit()``), reporting hit rate and hit/miss latency. ``--arch`` picks
+the fallback LM (``deepseek-v2-lite-16b``, ``mamba2-130m``, ... any
+registered config); ``--no-smoke`` serves its full config instead of the
+reduced smoke one.
 """
 import argparse
 import tempfile
@@ -19,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.api import EngineCfg, StorInfer, SystemCfg
+from repro_torch.configs import list_configs
 from repro_torch.core.embedder import HashEmbedder
 from repro_torch.core.kb import (TEMPLATES, build_kb, render_query,
                                  sample_user_queries)
@@ -63,7 +66,9 @@ def write_kb_store(path, kb, embedder, n_rows: int, *, seed: int = 0,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_configs(),
+                    help="the fallback LM: any registered arch of the "
+                         "dense, moe, ssm and hybrid families")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="reduced arch config (--no-smoke loads the full "

@@ -1,7 +1,7 @@
-"""Core layer primitives in PyTorch: init helpers, norms, MLPs, RoPE and
-sinusoidal positions, attention params — the dense-family subset of the
-JAX package's ``models/layers.py``, as plain functions over dicts of
-tensors.
+"""Core layer primitives in PyTorch: init helpers, norms (and Mamba2's
+gated norm), MLPs, RoPE and sinusoidal positions, attention params — the
+subset of the JAX package's ``models/layers.py`` that the ported families
+use, as plain functions over dicts of tensors.
 
 Weights keep the reference's layout (``dense`` weights are ``(d_in,
 d_out)``), so ``models/convert.py`` copies a reference pytree without
@@ -61,6 +61,11 @@ def rmsnorm(p, x, eps=1e-6):
     var = x.float().square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * p["scale"].to(x.dtype)
+
+
+def gated_rmsnorm(p, x, z, eps=1e-6):
+    """Mamba2-style gated norm: rmsnorm(x * silu(z))."""
+    return rmsnorm(p, x * F.silu(z), eps)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,117 @@
+"""Mixture-of-Experts FFN with capacity-bounded sort-free dispatch, ported
+from the JAX package's ``models/moe.py`` (its ``moe_ffn``, the scatter
+dispatch that ``RunCfg.moe_impl`` selects by default).
+
+Exact top-k routing with a per-call token capacity: tokens are scattered
+into an (E, C, d) buffer by (expert, rank) slot, the experts run as one
+batched product over every expert, and the results are gathered back and
+combined with renormalised router weights. An assignment past its
+expert's capacity is dropped (the residual stream carries the token).
+Which assignments drop is the reference's choice exactly: the top-k keeps
+the lower expert index on ties, and ranks follow an exclusive cumulative
+sum over the flattened (token, k) order.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _normal, dense_init, mlp, mlp_init
+
+
+def moe_init(gen, cfg, dtype, device):
+    d, ffe, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+
+    def ew(a, b):
+        return _normal(gen, (E, a, b), a ** -0.5, dtype, device)
+
+    p = {
+        # the router is kept in f32, as in the reference
+        "router": dense_init(gen, d, E, torch.float32, device),
+        "experts": {"w1": ew(d, ffe), "w3": ew(d, ffe), "w2": ew(ffe, d)},
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, dtype, device,
+                               d_ff=cfg.n_shared_experts * ffe)
+    return p
+
+
+def route(cfg, p, x2d):
+    """x2d: (T, d) -> (weights (T,K) f32, idx (T,K), router probs (T,E)).
+
+    The router product accumulates in f32 (the reference's
+    ``preferred_element_type``): the inputs are widened, which is exact.
+    ``jax.lax.top_k`` puts the lower index first among equal values and
+    ``torch.topk`` promises no order, so the top-k is a stable descending
+    sort."""
+    w_r = p["router"]["w"].to(x2d.dtype)
+    logits = x2d.float() @ w_r.float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :cfg.experts_per_tok], idx[:, :cfg.experts_per_tok]
+    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    return w, idx, probs
+
+
+def load_balance_loss(cfg, probs, idx):
+    """Switch-style aux loss: E * sum_e(f_e * p_e)."""
+    E = cfg.n_experts
+    me = probs.mean(dim=0)                                        # (E,)
+    fe = F.one_hot(idx, E).float().mean(dim=(0, 1))
+    return E * torch.sum(me * fe)
+
+
+def capacity(cfg, n_tokens):
+    c = int(n_tokens * cfg.experts_per_tok / cfg.n_experts
+            * cfg.moe_capacity_factor)
+    return max(c, 8)
+
+
+def dispatch_slots(cfg, idx, n_tokens):
+    """(slot, valid, C) for each (token, k) assignment: slot = expert * C +
+    rank within the expert, where rank counts the earlier assignments to
+    that expert in flattened (token, k) order; an overflowing assignment
+    gets slot E * C (one row past the buffer)."""
+    E = cfg.n_experts
+    C = capacity(cfg, n_tokens)
+    flat_e = idx.reshape(-1)                                      # (T*K,)
+    onehot = F.one_hot(flat_e, E)                                 # (T*K, E)
+    rank = torch.cumsum(onehot, dim=0) - onehot                   # exclusive
+    rank = rank.gather(1, flat_e[:, None])[:, 0]
+    valid = rank < C
+    slot = torch.where(valid, flat_e * C + rank,
+                       torch.full_like(flat_e, E * C))
+    return slot, valid, C
+
+
+def expert_ffn(cfg, experts, buf):
+    """buf: (E, C, d) -> (E, C, d) through gated-SiLU expert MLPs."""
+    h1 = F.silu(torch.bmm(buf, experts["w1"]))
+    h3 = torch.bmm(buf, experts["w3"])
+    return torch.bmm(h1 * h3, experts["w2"])
+
+
+def moe_ffn(cfg, p, x):
+    """x: (B, S, d) -> y. Exact top-k with capacity drop. The reference's
+    ``moe_ffn`` also returns the aux loss, which only training reads:
+    here it is ``load_balance_loss`` over ``route``'s outputs."""
+    B, S, d = x.shape
+    T = B * S
+    x2d = x.reshape(T, d)
+    w, idx, _ = route(cfg, p, x2d)
+    slot, valid, C = dispatch_slots(cfg, idx, T)
+    E, K = cfg.n_experts, cfg.experts_per_tok
+
+    # the reference's scatter (mode="drop") and gather (mode="fill") run
+    # over a buffer with one extra row that takes the dropped assignments
+    xk = x2d.repeat_interleave(K, dim=0) * valid[:, None].to(x.dtype)
+    buf = x.new_zeros((E * C + 1, d))
+    buf[slot] = xk
+    out = expert_ffn(cfg, p["experts"], buf[:E * C].reshape(E, C, d))
+    out = torch.cat([out.reshape(E * C, d), x.new_zeros((1, d))])
+    yk = out[slot] * valid[:, None].to(x.dtype)                   # (T*K, d)
+    y = torch.sum(yk.reshape(T, K, d) * w[..., None].to(x.dtype), dim=1)
+
+    if cfg.n_shared_experts:
+        y = y + mlp(cfg, p["shared"], x2d)
+    return y.reshape(B, S, d)

@@ -92,11 +92,24 @@ def test_configs_are_the_reference_configs(arch):
     assert tfull.param_count() == full.param_count()
 
 
+# the families ported beside the dense one (tests/test_torch_families.py)
+FAMILY_ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b", "mamba2-130m",
+                "zamba2-1.2b"]
+
+
 def test_registered_archs_are_the_dense_family():
+    """The registered archs are the dense family's six and the moe, ssm
+    and hybrid configs (the encdec and vlm families are not ported), each
+    with the reference's parameter count."""
     from repro_torch.configs import list_configs
-    assert list_configs() == sorted(ARCHS)
+    assert list_configs() == sorted(ARCHS + FAMILY_ARCHS)
+    for arch in ARCHS + FAMILY_ARCHS:
+        assert t_get_config(arch).param_count() == \
+            get_config(arch).param_count()
     assert t_get_config("storinfer-paper-8b").param_count() == \
         pytest.approx(8.03e9, rel=1e-3)
+    assert t_get_config("deepseek-v2-lite-16b").param_count() == \
+        pytest.approx(15.71e9, rel=1e-3)
 
 
 def test_converted_params_match_shapes(family):

@@ -64,6 +64,18 @@ DENSE_DECODE_SHAPES = [(4, 160, h, hk, d, 8) for h, hk, d in (
     (32, 8, 128), (32, 8, 64), (24, 8, 128), (36, 4, 128), (40, 8, 128))]
 DENSE_ARCHS = ["storinfer-paper-8b", "storinfer-paper-1b", "llama3.2-3b",
                "starcoder2-7b", "qwen2.5-32b"]
+# the moe, ssm and hybrid families: grok-1's GQA (48/8 of 128, G = 6) and
+# zamba2's shared block (32/32 of 64, G = 1) at full width, prefill at
+# max_len and decode over a 160-row cache
+FAMILY_FLASH_SHAPES = [(1, 160, 160, 48, 8, 128, True),
+                       (1, 160, 160, 32, 32, 64, True)]
+FAMILY_DECODE_SHAPES = [(4, 160, 48, 8, 128, 8), (4, 160, 32, 32, 64, 8)]
+# MLA's prefill: q and k 192 wide (nope 128 + rope 64), v 128 wide
+MLA_FLASH_SHAPES = [(1, 160, 160, 16, 16, 192, 128), (1, 47, 47, 16, 16, 192,
+                                                      128),
+                    (2, 37, 37, 4, 4, 24, 16)]
+FAMILY_ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b", "mamba2-130m",
+                "zamba2-1.2b"]
 
 
 def _t(a):
@@ -197,7 +209,7 @@ def test_gpu_mips_topk_int8_copies_no_store(cuda):
     (4, 160, 16, 8, 192, 8),    # deepseek-v2-lite's 192-wide heads
     (2, 40, 16, 2, 256, 20),    # the widest head dim, 20 splits
     (2, 50, 8, 8, 200, 3),      # D = 200: two 16-byte chunks a lane (f32)
-] + DENSE_DECODE_SHAPES)
+] + DENSE_DECODE_SHAPES + FAMILY_DECODE_SHAPES)
 def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
                                                    Hkv, D, ns):
     """The one launch ops.decode_attention makes (splits and their merge)
@@ -303,7 +315,8 @@ def test_gpu_decode_attention_lengths_past_the_cache(cuda, kv_dtype, T):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal",
+                         FLASH_SHAPES + FAMILY_FLASH_SHAPES)
 def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, B, S, T, Hq,
                                                   Hkv, D, causal):
     rng = np.random.default_rng(S * 3 + T + D)
@@ -318,6 +331,33 @@ def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, B, S, T, Hq,
     want = flash_attention_plain(q, k, v, causal)
     tol = 2e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,D,Dv", [(b, s, t, h, d, dv) for
+                                          b, s, t, h, _, d, dv in
+                                          MLA_FLASH_SHAPES])
+def test_gpu_flash_attention_narrow_values_match_plain(cuda, dtype, B, S, T,
+                                                       H, D, Dv):
+    """Values narrower than the queries and keys (MLA's prefill): one
+    launch over v zero-padded to the q/k width, the first Dv columns
+    returned, against the plain version on the narrow v."""
+    rng = np.random.default_rng(S + D + Dv)
+    q, k, v = (_t(rng.normal(size=shape).astype(np.float32)).to(cuda)
+               .to(dtype) for shape in ((B, S, H, D), (B, T, H, D),
+                                        (B, T, H, Dv)))
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (B, S, H, Dv)
+    want = flash_attention_plain(q, k, v, True)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError):                   # v wider than q/k
+        ops.flash_attention(q[..., :Dv], k[..., :Dv], v[..., :Dv].repeat(
+            1, 1, 1, 2), True)
 
 
 @pytest.mark.gpu
@@ -483,11 +523,14 @@ def test_gpu_dense_family_greedy_tokens_match_cpu(cuda, arch):
     assert ops.flash_attention.launches > f0
 
 
-def _teacher_forced_logits(cfg, params, tok, prompts, out_ids, max_len):
+def _teacher_forced_logits(cfg, params, tok, prompts, out_ids, max_len,
+                           n_steps=None):
     """The batch scheduler's path for one wave (each prompt prefilled and
     written into a slot of a ``cfg.dtype`` cache, then ``decode_step``
-    over all slots), each step fed the given tokens: the prefill's last
-    logits (B, V) and each decode step's (n, B, V), on the CPU."""
+    over all slots), each step fed the given tokens (with ``out_ids``
+    None, each slot's greedy pick of the step before, for ``n_steps``
+    steps): the prefill's last logits (B, V) and each decode step's
+    (n, B, V)."""
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine
     e = Engine(cfg, params, tok, max_len=max_len)
@@ -500,12 +543,17 @@ def _teacher_forced_logits(cfg, params, tok, prompts, out_ids, max_len):
         first.append(logits[0, -1])
     live = torch.ones(len(ids), dtype=torch.bool, device=e.device)
     steps = []
+    n = n_steps if out_ids is None else min(len(o) for o in out_ids) - 1
+    token = torch.stack(first).argmax(-1)[:, None]
     with torch.no_grad():
-        for t in range(min(len(o) for o in out_ids) - 1):
-            token = torch.tensor([[o[t]] for o in out_ids], device=e.device)
+        for t in range(n):
+            if out_ids is not None:
+                token = torch.tensor([[o[t]] for o in out_ids],
+                                     device=e.device)
             logits, cache = M.decode_step(cfg, params, token, cache,
                                           len(ids[0]) + t, live)
             steps.append(logits[:, -1])
+            token = logits[:, -1].argmax(-1)[:, None]
     return torch.stack(first).cpu(), torch.stack(steps).cpu()
 
 
@@ -567,6 +615,107 @@ def test_gpu_dense_family_bf16_batch_logits_match_cpu(cuda, arch):
           f"{float((got[0] - want[0]).abs().max()):.4e}); the card picks "
           f"another token at {int(picks.sum())}, where the CPU's top-2 gap "
           f"is {[round(float(x), 5) for x in gaps]}")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=TOL_LOGITS_BF16)
+
+
+def _family_cfg(arch, tok):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch)),
+                               vocab_size=tok.vocab_size)
+
+
+def _family_launches(cfg, steps):
+    """(B4, B3) launches of one prefill and of ``steps`` decode steps:
+    B4 per attention layer (MLA's expanded heads included), B3 per GQA
+    decode layer (MLA decode is plain; mamba2 has no attention)."""
+    from repro_torch.models import model as M
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        n = M.n_shared_attn(cfg)
+        return n, steps * n
+    return cfg.n_layers, 0 if cfg.use_mla else steps * cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_gpu_families_greedy_tokens_match_cpu(cuda, arch):
+    """Each moe, ssm and hybrid arch's ``reduced()`` config on the card
+    and on the CPU: the same greedy tokens through a session (f32
+    cache), prefill on B4 and GQA decode on B3 where the arch has them."""
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    tok = Tokenizer.from_texts(["what is the height of aurora bridge",
+                                "who founded the meridian institute"])
+    cfg = _family_cfg(arch, tok)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    outs = []
+    for p in (params, _to(params, cuda)):
+        e = Engine(cfg, p, tok, max_len=64, chunk=4)
+        ids, steps = [], 0
+        ops.reset_launch_counts()
+        for prompt in ("what is the height of aurora bridge?",
+                       "who founded the meridian institute?"):
+            s = e.start_session(prompt, max_new=20)
+            while not s.done:
+                s.step_chunk()
+            ids.append(s.out_ids)
+            steps += s.chunks_run * e.chunk
+        outs.append(ids)
+    counts = ops.launch_counts()
+    assert outs[0] == outs[1] and all(len(i) > 4 for i in outs[0])
+    b4, b3 = _family_launches(cfg, steps)
+    assert (counts["flash_attention"], counts["decode_attention"]) == \
+        (2 * b4, b3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_gpu_families_bf16_batch_logits_match_cpu(cuda, arch):
+    """The batch scheduler's bf16-cache path (``h`` f32) of each moe, ssm
+    and hybrid arch's ``reduced()`` config on the card, teacher-forced
+    with the CPU scheduler's greedy tokens: every step's logits within
+    TOL_LOGITS_BF16 of the CPU's, as for the dense family."""
+    from repro_torch.core.tokenizer import EOS, Tokenizer
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    tok = Tokenizer.from_texts(["what is the height of aurora bridge",
+                                "who founded the meridian institute"])
+    cfg = _family_cfg(arch, tok)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    prompts = ["what is the height of aurora bridge?",
+               "who founded the meridian institute of aurora?"]
+    s = Engine(cfg, params, tok, max_len=64, chunk=4).start_batch_session(
+        prompts, max_new=20)
+    for n, t in s.sched.cache.items():
+        assert t.dtype == (torch.float32 if n == "h" else torch.bfloat16)
+    s.run()
+    # the CPU's greedy tokens through the scheduler's path: the
+    # scheduler's own picks up to the first EOS, which it drops and then
+    # decodes on from (ROADMAP C4), so its out_ids are not what it fed
+    want = _teacher_forced_logits(cfg, params, tok, prompts, None, 64, 19)
+    picks = [[int(x[b]) for x in [want[0].argmax(-1)] + [
+        w.argmax(-1) for w in want[1]]] for b in range(len(prompts))]
+    for r, p in zip(s.results(), picks):
+        n = p.index(EOS) if EOS in p else len(p)
+        assert r.out_ids[:n] == p[:n] and n >= 4
+    ops.reset_launch_counts()
+    got = _teacher_forced_logits(cfg, _to(params, cuda), tok, prompts, picks,
+                                 64)
+    assert ops.launch_counts()["decode_attention"] == \
+        _family_launches(cfg, len(want[1]))[1]
+    picks = got[1].argmax(-1) != want[1].argmax(-1)
+    print(f"{arch}: bf16-cache logits, card vs CPU over {len(want[1])} "
+          f"steps x {len(prompts)} slots: max abs difference "
+          f"{float((got[1] - want[1]).abs().max()):.4e} (prefill "
+          f"{float((got[0] - want[0]).abs().max()):.4e}); the card picks "
+          f"another token at {int(picks.sum())}")
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=TOL_LOGITS_BF16)
 

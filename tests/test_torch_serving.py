@@ -194,7 +194,10 @@ def test_port_sources_import_no_jax_and_no_reference():
              if "repro_torch" in f.parts}
     assert {"core/metrics.py", "core/latency.py", "core/embedder.py",
             "configs/storinfer_paper.py", "configs/llama3_2_3b.py",
-            "configs/starcoder2_7b.py", "configs/qwen2_5_32b.py"} <= names
+            "configs/starcoder2_7b.py", "configs/qwen2_5_32b.py",
+            "configs/deepseek_v2_lite_16b.py", "configs/grok_1_314b.py",
+            "configs/mamba2_130m.py", "configs/zamba2_1_2b.py",
+            "models/mla.py", "models/moe.py", "models/ssm.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -219,6 +222,14 @@ with StorInfer.open(path, cfg) as si:
     assert rs[0].hit and not rs[1].hit, rs
     with si.serve():
         assert si.submit("zebra two", max_new=4).result(timeout=120).tokens
+for arch in ("deepseek-v2-lite-16b", "grok-1-314b", "mamba2-130m",
+             "zamba2-1.2b"):
+    cfg = SystemCfg(index="flat", device="cpu",
+                    engine=EngineCfg(arch=arch, max_len=64, chunk=4))
+    with StorInfer.open(path, cfg) as si:
+        assert si.engine.cfg.family in ("moe", "ssm", "hybrid"), arch
+        rs = si.query_batch(["zebra xylophone", "zebra three"], max_new=4)
+        assert all(not r.hit and r.tokens for r in rs), (arch, rs)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
