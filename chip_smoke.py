@@ -65,11 +65,30 @@ result line is printed only when every phase passed:
    zamba2-1.2b (hybrid) at full width and depth, as phase 9 runs the
    dense family; mamba2 is attention-free and launches no kernel.
 
-Phase 3 also holds B3 and B4 at grok-1's and zamba2's head shapes and B4
-at MLA's (q/k 192, v 128).
+13. encdec + vlm — whisper-base (encdec) at full size and qwen2-vl-72b
+   (vlm, M-RoPE) at full width with 16 of its 80 layers (a ``reduced:``
+   line), through the model API (``prefill`` with frames or M-RoPE
+   positions, ``decode_step``): a KB prompt's prefill (whisper: random
+   frame embeddings from ``--seed``, the reference's stub frontend;
+   qwen2-vl: a text prefix, a 4 x 4 image block and a text suffix) and
+   16 greedy tokens at batch 1 and 4; encoder, prefill and decode times,
+   peak memory, B3 and B4 launches;
+14. train — qwen3-1.7b at full width and depth in mixed precision (bf16
+   params, f32 AdamW state) on the KB's text at 4 x 256 tokens with the
+   blockwise attention: accum 2 against 1, the loss on a repeated batch,
+   s per step and tokens/s, a checkpoint saved, restored and stepped bit
+   for bit as the uninterrupted run, one compressed step; B4 must show 0
+   launches (it has no backward).
+
+Phase 3 also holds B3 and B4 at grok-1's and zamba2's head shapes, B4 at
+MLA's (q/k 192, v 128), and both at phase 13's: whisper-base's encoder
+(B 1 and 4, S = T = 1500, non-causal) and cross-attention prefill (a KB
+prompt over 1500 frames) on B4, its cross-attention decode (T = 1500,
+lengths 1499, f32 and bf16) on B3, qwen2-vl-72b's 64/8 heads of 128 on
+both; each new shape is also timed beside its bound and SDPA.
 
 The kernels' launch counters are set to 0 just before each serving run,
-each build and each engine or training run of phases 8-12 and read just
+each build and each engine or training run of phases 8-14 and read just
 after it: every kernel of the path must have run there. The
 last lines are one JSON line of per-kernel numbers, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -114,6 +133,29 @@ DENSE_HEADS = [("storinfer-paper-8b", 32, 8, 128),
 # the moe, ssm and hybrid families' GQA shapes at full width: grok-1's
 # 48/8 heads of 128 (G = 6) and zamba2's shared block, 32/32 of 64 (G = 1)
 FAMILY_HEADS = [("grok-1-314b", 48, 8, 128), ("zamba2-1.2b", 32, 32, 64)]
+WHISPER_FRAMES = 1500        # whisper-base's encoder_seq (phase 13)
+# phase 13: qwen2-vl-72b at full width, fp32: 877.8 M parameters (3.27
+# GiB) a layer plus 9.28 GiB of untied embedding and head, so 16 of its 80
+# layers are 61.6 GiB; 20 (74.7 GiB) would leave under 5 GiB
+VLM_LAYERS = 16
+# phase 14: qwen3-1.7b trained at full width and depth, bf16 params and
+# f32 AdamW state (34 GiB before activations), KB text at 4 x 256 tokens,
+# with the reference's AdamW defaults (lr 3e-4 after 100 warmup steps).
+# Without the warmup the first steps diverge from random weights: Adam
+# moves every weight by about lr in one step, and at lr 3e-4 (and 1e-3)
+# with one warmup step the loss on a repeated batch went 12.2, 8.9, 18.4,
+# 9.8, 6.8, 12.7 (NVIDIA H100 80GB HBM3, 700.00 W)
+LM_TRAIN_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_SEQ = 4, 256
+LM_REPEAT, LM_TIMED = 6, 5
+# accum 2 against accum 1 after one step from a fresh state: the bf16
+# forward and backward of two half batches against one whole batch round
+# differently, so the loss (a mean over the same 1,024 labels) agrees to
+# bf16 accuracy and the grad norm to about 1%; Adam's first update is
+# about lr times the sign of each gradient, so a master whose gradient
+# is near 0 may move by up to 2 lr (of step 1) more in one than in the
+# other (plus the f32 rounding of masters below 1: 1e-6)
+TOL_ACCUM_LOSS, TOL_ACCUM_NORM = 1e-3, 1e-2
 # deepseek-v2-lite's MLA prefill on B4: 16 heads, q/k 192 (nope 128 + rope
 # 64), v 128 (zero-padded to 192 by the wrapper)
 MLA_SHAPE = (1, 160, 160, 16, 16, 192, 128)
@@ -539,28 +581,68 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
           f"max_abs_err={max(errs):.3e} (tol {TOL_DECODE_F32}); length 300: "
           f"device {spread(lm_ms)} ms, per call with host gaps "
           f"{lm_call:.4f} ms")
-    ms, call = timed(torch, lambda: ops.decode_attention(
-        qq, kk, vv, main_len, ns), 200, None, "decode_attention_kernel")
-    plain, plain_call = timed(torch, lambda: da.combine_splits(
-        *da.decode_partials_plain(qq, kk, vv, main_len, ns)), 50)
-    pos = torch.arange(T, device=dev)
-    mask = (pos[None, :] <= main_len[:, None])[:, None, None, :]
-    qs_ = qq.to(kk.dtype)[:, :, None, :]
-    kt, vt = kk.transpose(1, 2), vv.transpose(1, 2)
-    lib, lib_call = timed(torch, lambda: F.scaled_dot_product_attention(
-        qs_, kt, vt, attn_mask=mask, enable_gqa=True), 200)
-    att = int((main_len.clamp(max=T - 1) + 1).sum())
-    kv_bytes = att * Hkv * Dh * kk.element_size() * 2
-    b_ms, b_by = bound(nb(qq, main_len) + kv_bytes + B * Hq * Dh * 4,
-                       4 * att * Hq * Dh, F32_FLOPS)
+    def b3_timing(qq, kk, vv, lens, iters):
+        """(kernel, plain, library) device ms, their per-call event ms,
+        and the bound, for one B3 shape."""
+        B_, Hq_, D_ = qq.shape
+        T_, Hkv_ = kk.shape[1], kk.shape[2]
+        ms_, call_ = timed(torch, lambda: ops.decode_attention(
+            qq, kk, vv, lens, ns), iters, None, "decode_attention_kernel")
+        plain_, plain_call_ = timed(torch, lambda: da.combine_splits(
+            *da.decode_partials_plain(qq, kk, vv, lens, ns)), iters // 4)
+        pos = torch.arange(T_, device=dev)
+        mask = (pos[None, :] <= lens[:, None])[:, None, None, :]
+        qs_ = qq.to(kk.dtype)[:, :, None, :]
+        kt, vt = kk.transpose(1, 2), vv.transpose(1, 2)
+        lib_, lib_call_ = timed(torch, lambda: F.scaled_dot_product_attention(
+            qs_, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+        # the attended rows of k and v, read once each
+        att = int((lens.clamp(max=T_ - 1) + 1).sum())
+        kv_bytes = att * Hkv_ * D_ * kk.element_size() * 2
+        b_ms_, b_by_ = bound(nb(qq, lens) + kv_bytes + B_ * Hq_ * D_ * 4,
+                             4 * att * Hq_ * D_, F32_FLOPS)
+        return ms_, plain_, lib_, (call_, plain_call_, lib_call_), b_ms_, \
+            b_by_
+
+    ms, plain, lib, calls, b_ms, b_by = b3_timing(qq, kk, vv, main_len, 200)
     print(f"B3 as gqa_decode calls it (ops.decode_attention, one launch): "
-          f"device {spread(ms)} ms, per call with host gaps {call:.4f} ms")
+          f"device {spread(ms)} ms, per call with host gaps {calls[0]:.4f} "
+          "ms")
     rows.append(dict(name="decode_attention", route="cuda",
                      source="src/repro_torch/csrc/decode_attention.cu",
                      replaces="src/repro/kernels/decode_attention.py:47",
                      max_abs_err=err3, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=lib,
-                     calls=(call, plain_call, lib_call)))
+                     bound_by=b_by, library_ms=lib, calls=calls))
+    # phase 13's shapes: whisper-base's cross-attention decode, one token
+    # over the 1500 static encoder rows (8 heads of 64, G = 1, lengths
+    # 1499: every frame), and qwen2-vl-72b's decode (64/8 heads of 128,
+    # G = 8) over a 160-row cache; f32 (a session's cache) and bf16
+    full = torch.full((B,), WHISPER_FRAMES - 1, dtype=torch.int32,
+                      device=dev)
+    for dt, tol in ((torch.float32, TOL_DECODE_F32),
+                    (torch.bfloat16, TOL_DECODE_BF16)):
+        b3_case(WHISPER_FRAMES, full, dt, ns, tol,
+                f"whisper-base cross-attention B=4 T={WHISPER_FRAMES} "
+                f"lengths {WHISPER_FRAMES - 1} {dt}", 64, 8, 8)
+        b3_case(T, rag160, dt, ns, tol, f"qwen2-vl-72b Hq=64 Hkv=8 D=128 "
+                f"T=160 {dt} cache", 128, 64, 8)
+    for label, (T_, h, hk, d, lens) in (
+            ("whisper-base cross-attention B=4 T=1500", (
+                WHISPER_FRAMES, 8, 8, 64, full)),
+            ("qwen2-vl-72b B=4 T=160 lengths 100", (T, 64, 8, 128,
+                                                    main_len))):
+        for dt in (torch.float32, torch.bfloat16):
+            qq = torch.randn((B, h, d), generator=g, device=dev)
+            kk, vv = (torch.randn((B, T_, hk, d), generator=g,
+                                  device=dev).to(dt) for _ in range(2))
+            t = b3_timing(qq, kk, vv, lens, 200)
+            print(f"timing decode_attention {label} {dt} cache (device "
+                  f"time per call, profiler, median (min-max) of 3): kernel "
+                  f"{spread(t[0])} ms, plain {spread(t[1])} ms, library "
+                  f"{spread(t[2])} ms, bound {t[4]:.5f} ms ({t[5]}); per "
+                  f"call with host gaps (CUDA events): kernel "
+                  f"{t[3][0]:.4f}, plain {t[3][1]:.4f}, library "
+                  f"{t[3][2]:.4f} ms")
     # -- B4 ------------------------------------------------------------------
     from repro_torch.kernels import flash_attention as fa
     lib_fa = ops._lib("flash_attention")
@@ -647,11 +729,33 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
                      max_abs_err=err4, ms=ms, plain_ms=plain, bound_ms=b_ms,
                      bound_by=b_by, library_ms=lib, calls=calls,
                      shape="(a) B=256 S=T=64 H=6 D=64 f32 non-causal"))
-    for label, (qq, kk, vv) in (("(b) S=T=160", pre_in),
-                                (f"(b) S=T={prompt_len}", real_in),
-                                ("(c) S=T=512", lm_in)):
-        t = b4_timing(qq, kk, vv, True, 200)
-        print(f"timing flash_attention {label} f32 causal (device time per "
+    # phase 13's shapes: whisper-base's encoder (8 heads of 64 over its
+    # 1500 frames, non-causal) at batch 1 and 4, its cross-attention
+    # prefill (the KB prompt's queries over the 1500 frames), and
+    # qwen2-vl-72b's prefill (64/8 heads of 128)
+    wf = WHISPER_FRAMES
+    new_b4 = [(f"whisper-base encoder B=1 S=T={wf}", (1, wf, wf, 8, 8, 64),
+               False),
+              (f"whisper-base encoder B=4 S=T={wf}", (4, wf, wf, 8, 8, 64),
+               False),
+              (f"whisper-base cross-attention prefill B=1 S={prompt_len} "
+               f"T={wf}", (1, prompt_len, wf, 8, 8, 64), False),
+              (f"whisper-base cross-attention prefill B=4 S={prompt_len} "
+               f"T={wf}", (4, prompt_len, wf, 8, 8, 64), False),
+              ("qwen2-vl-72b prefill S=T=160 Hq=64 Hkv=8 D=128",
+               (1, 160, 160, 64, 8, 128), True)]
+    timing_in = [("(b) S=T=160", pre_in, True),
+                 (f"(b) S=T={prompt_len}", real_in, True),
+                 ("(c) S=T=512", lm_in, True)]
+    for label, shape, causal in new_b4:
+        for dt in (torch.bfloat16, torch.float32):
+            _, ins = b4_case(shape, causal, dt, f"{label} {dt} "
+                             f"{'causal' if causal else 'non-causal'}")
+        timing_in.append((label, ins, causal))          # the f32 inputs
+    for label, (qq, kk, vv), causal in timing_in:
+        t = b4_timing(qq, kk, vv, causal, 200 if qq.shape[1] < 1000 else 50)
+        print(f"timing flash_attention {label} f32 "
+              f"{'causal' if causal else 'non-causal'} (device time per "
               f"call, profiler, median (min-max) of 3): kernel "
               f"{spread(t[0])} ms, plain {spread(t[1])} ms, library "
               f"{spread(t[2])} ms, bound {t[4]:.5f} ms ({t[5]}); per call "
@@ -1796,6 +1900,341 @@ def phase_train(torch, np, args, card, corpus, dev):
     return {"minilm train": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the encdec and vlm families through the model API
+# ---------------------------------------------------------------------------
+
+
+def mrope_layout(n_text, grid, n_suffix):
+    """(3, S) Qwen2-VL M-RoPE positions: a text prefix (t = h = w = i), a
+    grid x grid image block at the next position (t fixed, h the row, w
+    the column), then text from the largest position + 1."""
+    pos = [[i, i, i] for i in range(n_text)]
+    pos += [[n_text, n_text + r, n_text + c] for r in range(grid)
+            for c in range(grid)]
+    nxt = max(max(p) for p in pos) + 1
+    pos += [[nxt + i] * 3 for i in range(n_suffix)]
+    return pos
+
+
+def greedy_api(torch, cfg, params, tokens, kw, n, max_len, mrope_next=None):
+    """Prefill (B, S) ``tokens`` through ``prefill`` with the family's
+    inputs ``kw``, then ``n`` greedy ``decode_step``s (qwen2-vl: at the
+    M-RoPE positions after ``mrope_next``). Returns (the prefill's last
+    logits, the (B, n + 1) greedy ids, the decode steps' logits' finiteness,
+    prefill s, s per decode step)."""
+    from repro_torch.models import model as M
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, tokens, max_len, **kw)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    ids, finite = [logits[:, -1].argmax(-1)], bool(
+        torch.isfinite(logits).all())
+    t0 = time.perf_counter()
+    for t in range(n):
+        step_kw = {}
+        if mrope_next is not None:
+            step_kw["mrope_positions"] = torch.full(
+                (3, B, 1), mrope_next + t, dtype=torch.long,
+                device=tokens.device)
+        lg, cache = M.decode_step(cfg, params, ids[-1][:, None], cache,
+                                  S + t, **step_kw)
+        finite = finite and bool(torch.isfinite(lg).all())
+        ids.append(lg[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / n
+    return logits, torch.stack(ids, 1), finite, t_pre, t_dec
+
+
+def phase_encdec_vlm(torch, np, args, card, corpus, dev):
+    """13: whisper-base (encdec) at full size and qwen2-vl-72b (vlm,
+    M-RoPE) at full width with ``VLM_LAYERS`` of its 80 layers, through
+    the model API (``init_model``, ``prefill``, ``decode_step``: the
+    reference's engine prefills tokens only, so neither family is served
+    behind the store). Whisper's frames are the stub frontend's random
+    (B, 1500, 512) embeddings from ``--seed``; qwen2-vl's prompt is a KB
+    text prefix, a 4 x 4 "image" block and a text suffix, numbered as
+    Qwen2-VL numbers them. A KB prompt's prefill and ``MAX_NEW`` greedy
+    tokens at batch 1 and 4: encoder (whisper), prefill and decode times,
+    peak memory, and the B3 and B4 launches of the run, both above 0."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    tok, prompt = corpus[2], corpus[1][0][0]
+    ids = tok.encode(prompt, bos=True)
+    out = {}
+    for arch, layers in (("whisper-base", None), ("qwen2-vl-72b",
+                                                   VLM_LAYERS)):
+        label = f"encdec + vlm {arch}"
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        if layers is not None:
+            more = dataclasses.replace(full, n_layers=layers + 4)
+            print(f"reduced: {arch} runs {layers} of its {full.n_layers} "
+                  f"layers at full width (fp32 weights at full depth are "
+                  f"{gib(4 * full.param_count()):.1f} GiB, more than the "
+                  f"card's 80 GB; {layers} layers are "
+                  f"{gib(4 * cfg.param_count()):.1f} GiB, {layers + 4} "
+                  f"would be {gib(4 * more.param_count()):.1f} and leave "
+                  "too little for the cache and the logits)")
+        release(torch)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = M.init_model(cfg, gen, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_par, n_bytes = param_bytes(params)
+        if cfg.is_encoder_decoder:
+            prompt_ids, mrope_next = ids, None
+            frames = torch.randn((4, cfg.encoder_seq, cfg.d_model),
+                                 generator=gen, device=dev)
+        else:
+            img = torch.randint(4, tok.vocab_size, (16,), generator=gen,
+                                device=dev).tolist()
+            prompt_ids = ids[:4] + img + ids[4:]
+            pos = mrope_layout(4, 4, len(ids) - 4)
+            mrope_next = max(max(p) for p in pos) + 1
+        S = len(prompt_ids)
+        ops.reset_launch_counts()
+        rates, finite, ok_ids, reads = [], True, True, {}
+        for bsz in (1, 4):
+            tokens = torch.tensor([prompt_ids] * bsz, device=dev)
+            kw = {"frames": frames[:bsz]} if cfg.is_encoder_decoder else \
+                {"mrope_positions": torch.tensor(pos, device=dev).T[
+                    :, None, :].expand(3, bsz, S).contiguous()}
+            greedy_api(torch, cfg, params, tokens, kw, 2, 160, mrope_next)
+            logits, gen_ids, fin, t_pre, t_dec = greedy_api(
+                torch, cfg, params, tokens, kw, MAX_NEW, 160, mrope_next)
+            finite = finite and fin
+            ok_ids = ok_ids and bool(((gen_ids >= 0) & (
+                gen_ids < cfg.vocab_size)).all())
+            if cfg.is_encoder_decoder:
+                enc_s = median_s(torch, lambda: M._encode(
+                    cfg, params, frames[:bsz]), reps=5)
+                reads[f"encoder_b{bsz}_ms"] = enc_s * 1e3
+            reads[f"prefill_b{bsz}_ms"] = t_pre * 1e3
+            reads[f"decode_b{bsz}_ms_per_step"] = t_dec * 1e3
+            rates.append(f"batch {bsz}: " + (
+                f"encoder {enc_s * 1e3:.2f} ms, " if cfg.is_encoder_decoder
+                else "") + f"prefill of {S} tokens {t_pre * 1e3:.2f} ms, "
+                f"{MAX_NEW} greedy tokens at {t_dec * 1e3:.2f} ms/step "
+                f"({bsz / t_dec:.1f} tokens/s)")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label}: {describe(cfg)}"
+              + (f", {cfg.n_encoder_layers} encoder layers over "
+                 f"{cfg.encoder_seq} frames" if cfg.is_encoder_decoder
+                 else f", M-RoPE sections {cfg.mrope_sections}")
+              + f"; {n_par / 1e9:.3f} B parameters, {gib(n_bytes):.2f} GiB "
+              f"fp32, initialised in {t_init:.2f} s ({gib(held):.3f} GiB "
+              "held before); " + "; ".join(rates) + f"; peak device memory "
+              f"{gib(peak):.3f} GiB on {card}; launches {counts}")
+        print(f"{label}: readings " + json.dumps(
+            {k: round(v, 4) for k, v in reads.items()}))
+        check(finite, f"{label}: logits are not finite")
+        check(ok_ids, f"{label}: a greedy id outside the vocab")
+        check(counts["flash_attention"] > 0 and
+              counts["decode_attention"] > 0,
+              f"{label}: prefill or decode did not run on B4/B3 ({counts})")
+        out[arch] = counts
+        del params
+    release(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: training qwen3-1.7b on the card
+# ---------------------------------------------------------------------------
+
+
+def _clone(torch, tree):
+    from repro_torch.models.convert import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def phase_train_lm(torch, np, args, card, corpus, dev):
+    """14: qwen3-1.7b at full width and depth in the reference's mixed
+    precision (bf16 params, f32 AdamW master, m and v), on ``TextFileData``
+    over the KB at ``LM_BATCH`` x ``LM_SEQ`` tokens, blockwise attention
+    with its hand-written backward. The loss on one repeated batch must
+    fall; accum 2 against accum 1 on one batch; s per step and tokens/s;
+    a checkpoint saved, restored and stepped, bit for bit the
+    uninterrupted step; one compressed step. B4 must show 0 launches: it
+    has no backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import compression as GC
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as T
+
+    label = "train"
+    kb, tok = corpus[0], corpus[2]
+    exact_fp32()
+    cfg = get_config(LM_TRAIN_ARCH)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    p0 = M.init_model(cfg, gen, dtype=torch.bfloat16, device=dev)
+    n_par, n_bytes = param_bytes(p0)
+    data = D.TextFileData([d.text() for d in kb.docs], tok, LM_BATCH, LM_SEQ,
+                          seed=args.seed)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).long().to(dev)
+                for k, v in data.batch(i).items()}
+
+    run = M.RunCfg(attn_impl="blockwise")
+    ocfg = O.AdamWCfg()
+    tol_master = 2 * O.lr_at(ocfg, 1) + 1e-6
+    print(f"{label}: {cfg.name}: {describe(cfg)}; {n_par / 1e9:.3f} B "
+          f"parameters, {gib(n_bytes):.2f} GiB bf16, AdamW state "
+          f"{gib(3 * 4 * n_par):.2f} GiB f32; {len(data.ids)} KB tokens, "
+          f"batch {LM_BATCH} x {LM_SEQ}, lr {ocfg.lr} after "
+          f"{ocfg.warmup_steps} warmup steps, blockwise attention (q_block "
+          f"{run.q_block}, kv_block {run.kv_block})")
+
+    # accum 2 against accum 1: one step from the same fresh state
+    res = {}
+    for accum in (1, 2):
+        p = _clone(torch, p0)
+        o = O.init(p)
+        p, o, m = T.make_train_step(cfg, run, ocfg, accum=accum)(p, o,
+                                                                 batch(0))
+        res[accum] = (float(m["loss"]), float(m["grad_norm"]),
+                      [t.cpu() for t in tree_leaves(o["master"])])
+        del p, o
+        release(torch)
+    d_master = max(float((a - b).abs().max())
+                   for a, b in zip(res[1][2], res[2][2]))
+    d_loss = abs(res[1][0] - res[2][0]) / abs(res[1][0])
+    d_norm = abs(res[1][1] - res[2][1]) / res[1][1]
+    print(f"{label}: accum 2 against accum 1 on one batch, one step: loss "
+          f"{res[2][0]:.6f} vs {res[1][0]:.6f} ({d_loss:.2e} relative, tol "
+          f"{TOL_ACCUM_LOSS}), grad norm {res[2][1]:.5f} vs {res[1][1]:.5f} "
+          f"({d_norm:.2e}, tol {TOL_ACCUM_NORM}), f32 masters differ by "
+          f"{d_master:.2e} at most (tol {tol_master:.4g}: 2 lr)")
+    del res
+
+    # the loss on one repeated batch
+    step = T.make_train_step(cfg, run, ocfg)
+    p, o = _clone(torch, p0), O.init(p0)
+    del p0
+    b0 = batch(0)
+    losses = []
+    for _ in range(LM_REPEAT):
+        p, o, m = step(p, o, b0)
+        losses.append(float(m["loss"]))
+    print(f"{label}: loss on one repeated batch over {LM_REPEAT} steps: "
+          + " ".join(f"{x:.4f}" for x in losses))
+
+    # s per step over fresh batches
+    times = []
+    for i in range(1, LM_TIMED + 1):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    s_step = float(np.median(times))
+    print(f"{label}: {LM_TIMED} steps over fresh batches: median "
+          f"{s_step:.4f} s per step (min {min(times):.4f}, max "
+          f"{max(times):.4f}), {LM_BATCH * LM_SEQ / s_step:.0f} tokens/s; "
+          f"last loss {float(m['loss']):.4f} on {card}")
+
+    # a checkpoint: saved, then the uninterrupted step; restored, stepped
+    work = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    ck = CK.Checkpointer(work)
+    nxt = batch(LM_TIMED + 1)
+    t0 = time.perf_counter()
+    ck.save(int(o["step"]), {"params": p, "opt": o})
+    t_copy = time.perf_counter() - t0
+    p, o, m = step(p, o, nxt)
+    want = [t.cpu() for t in tree_leaves(p)]
+    want_loss = float(m["loss"])
+    t0 = time.perf_counter()
+    ck.wait()
+    t_write = time.perf_counter() - t0
+    o_grad_err = GC.init_error_state(p)
+    del p, o
+    release(torch)
+    t0 = time.perf_counter()
+    st, meta = ck.restore(device=dev)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    p, o = st["params"], st["opt"]
+    o["step"] = o["step"].cpu()
+    p, o, m = step(p, o, nxt)
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(want,
+                                                       tree_leaves(p)))
+    disk = sum(f.stat().st_size for f in work.rglob("*.npy"))
+    print(f"{label}: checkpoint of step {meta['step']}: {len(meta['keys'])} "
+          f"arrays, {disk / 1e9:.2f} GB on disk; host copy {t_copy:.2f} s, "
+          f"background write done {t_write:.2f} s after the next step, "
+          f"restore to the card {t_restore:.2f} s; the step after the "
+          f"restore {'equals' if same else 'DIFFERS FROM'} the "
+          f"uninterrupted one bit for bit (loss {float(m['loss']):.6f} vs "
+          f"{want_loss:.6f})")
+    del want
+    shutil.rmtree(work, ignore_errors=True)
+
+    # one compressed step
+    def compress(grads, opt_state):
+        dq, err = GC.compress_grads(grads, opt_state["grad_err"])
+        return dq, dict(opt_state, grad_err=err)
+
+    o["grad_err"] = o_grad_err
+    p, o, mc = T.make_train_step(cfg, run, ocfg, compress=compress)(
+        p, o, batch(LM_TIMED + 2))
+    err_norm = float(O.global_norm(o["grad_err"]))
+    print(f"{label}: one --compress step (int8 codes, error feedback): "
+          f"loss {float(mc['loss']):.4f}, grad norm "
+          f"{float(mc['grad_norm']):.4f}, residual norm {err_norm:.4e}")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: peak device memory {gib(peak):.3f} GiB on {card}; "
+          f"launches {counts}: flash_attention 0, as it must be: B4 has no "
+          "backward in either package, so training runs the blockwise "
+          "attention of models/blockwise.py (plain PyTorch with its "
+          "hand-written flash backward), and it decodes nothing")
+    print(f"{label}: readings " + json.dumps({
+        "s_per_step": round(s_step, 4),
+        "tokens_per_s": round(LM_BATCH * LM_SEQ / s_step, 1),
+        "peak_gib": round(gib(peak), 3)}))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: the loss on a repeated batch did not fall ({losses})")
+    check(d_loss <= TOL_ACCUM_LOSS and d_norm <= TOL_ACCUM_NORM and
+          d_master <= tol_master, f"{label}: accum 2 differs from "
+          f"accum 1 (loss {d_loss:.2e}, norm {d_norm:.2e}, masters "
+          f"{d_master:.2e})")
+    check(same, f"{label}: the step after a restore differs from the "
+          "uninterrupted step")
+    check(np.isfinite(float(mc["loss"])) and np.isfinite(err_norm),
+          f"{label}: the compressed step is not finite")
+    check(counts["flash_attention"] == 0, f"{label}: B4 launched "
+          f"{counts['flash_attention']} times under autograd")
+    del p, o, st
+    release(torch)
+    return {"train lm": counts}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1880,6 +2319,16 @@ def main():
     t12 = time.perf_counter()
     counts.update(phase_families(torch, np, args, card, corpus, dev))
     print(f"families: phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    # -- phase 13: whisper-base and qwen2-vl-72b through the model API -------
+    t13 = time.perf_counter()
+    counts.update(phase_encdec_vlm(torch, np, args, card, corpus, dev))
+    print(f"encdec + vlm: phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    # -- phase 14: training qwen3-1.7b ----------------------------------------
+    t14 = time.perf_counter()
+    counts.update(phase_train_lm(torch, np, args, card, corpus, dev))
+    print(f"train: phase 14 took {time.perf_counter() - t14:.1f} s")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

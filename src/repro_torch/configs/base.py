@@ -9,8 +9,8 @@ six (``storinfer-paper-8b`` and ``storinfer-paper-1b``, the paper's own
 serving model and its on-device fallback, ``llama3.2-3b``,
 ``starcoder2-7b``, ``qwen2.5-32b``, ``qwen3-1.7b``), the moe family's
 ``deepseek-v2-lite-16b`` (MLA) and ``grok-1-314b`` (GQA), the ssm
-family's ``mamba2-130m`` and the hybrid ``zamba2-1.2b``; the encdec and
-vlm families are not ported yet.
+family's ``mamba2-130m``, the hybrid ``zamba2-1.2b``, the encdec
+``whisper-base`` and the vlm ``qwen2-vl-72b`` (M-RoPE).
 """
 from __future__ import annotations
 
@@ -219,7 +219,8 @@ def _load_all() -> None:
     # importing the modules populates the registry via register()
     from repro_torch.configs import (  # noqa: F401
         deepseek_v2_lite_16b, grok_1_314b, llama3_2_3b, mamba2_130m,
-        qwen2_5_32b, qwen3_1_7b, starcoder2_7b, storinfer_paper, zamba2_1_2b)
+        qwen2_5_32b, qwen2_vl_72b, qwen3_1_7b, starcoder2_7b, storinfer_paper,
+        whisper_base, zamba2_1_2b)
 
 
 # ---------------------------------------------------------------------------

@@ -128,13 +128,13 @@ class MiniLMEncoder:
 
     def _pooled(self, tokens, mask, attn_impl):
         """``_forward`` without ``no_grad``; ``attn_impl`` as in
-        ``models/model.py:gqa_fullseq``."""
+        ``models/model.py:RunCfg``."""
         x = self.params["embed"]["w"][tokens] + self._pos[None]
         pos = torch.arange(tokens.shape[1], device=self.device)[None] \
             .expand(tokens.shape)
         for lp in self.params["blocks"]:
-            x, _ = M.block_fullseq(self.mcfg, lp, x, pos, kind="enc",
-                                   attn_impl=attn_impl)
+            x, _, _ = M.block_fullseq(self.mcfg, lp, x, pos, kind="enc",
+                                      run=M.RunCfg(attn_impl=attn_impl))
         # the final norm's eps is the reference's hard-coded 1e-6
         x = Lyr.rmsnorm(self.params["final_norm"], x, 1e-6)
         pooled = (x * mask[..., None]).sum(1) / torch.clamp(

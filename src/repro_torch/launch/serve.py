@@ -11,8 +11,9 @@ offline generator is ``launch/precompute.py``). It then serves a user-query stre
 sequential race, and the staged serving pipeline (``serve()`` /
 ``submit()``), reporting hit rate and hit/miss latency. ``--arch`` picks
 the fallback LM (``deepseek-v2-lite-16b``, ``mamba2-130m``, ... any
-registered config); ``--no-smoke`` serves its full config instead of the
-reduced smoke one.
+registered config the engine serves: not the encdec or vlm families,
+which need frames or M-RoPE positions); ``--no-smoke`` serves its full
+config instead of the reduced smoke one.
 """
 import argparse
 import tempfile
@@ -21,7 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.api import EngineCfg, StorInfer, SystemCfg
-from repro_torch.configs import list_configs
+from repro_torch.configs import get_config, list_configs
 from repro_torch.core.embedder import HashEmbedder
 from repro_torch.core.kb import (TEMPLATES, build_kb, render_query,
                                  sample_user_queries)
@@ -64,11 +65,18 @@ def write_kb_store(path, kb, embedder, n_rows: int, *, seed: int = 0,
     return store
 
 
+def servable():
+    """The registered archs the serving engine takes."""
+    return [a for a in list_configs()
+            if get_config(a).family not in ("encdec", "vlm")]
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_configs(),
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=servable(),
                     help="the fallback LM: any registered arch of the "
-                         "dense, moe, ssm and hybrid families")
+                         "dense, moe, ssm and hybrid families (the engine "
+                         "prefills tokens only, so not encdec or vlm)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="reduced arch config (--no-smoke loads the full "

@@ -1,7 +1,8 @@
 """Core layer primitives in PyTorch: init helpers, norms (and Mamba2's
-gated norm), MLPs, RoPE and sinusoidal positions, attention params — the
-subset of the JAX package's ``models/layers.py`` that the ported families
-use, as plain functions over dicts of tensors.
+gated norm), MLPs, RoPE, M-RoPE and sinusoidal positions, attention and
+cross-attention params — the subset of the JAX package's
+``models/layers.py`` that the ported families use, as plain functions
+over dicts of tensors.
 
 Weights keep the reference's layout (``dense`` weights are ``(d_in,
 d_out)``), so ``models/convert.py`` copies a reference pytree without
@@ -92,7 +93,8 @@ def mlp(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# Positions: RoPE (decoder), sinusoidal (the MiniLM encoder)
+# Positions: RoPE and M-RoPE (decoder), sinusoidal (the MiniLM encoder,
+# whisper's encoder and decoder)
 # ---------------------------------------------------------------------------
 
 
@@ -133,6 +135,24 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions, theta, sections):
+    """M-RoPE (Qwen2-VL): x (B, S, H, D); positions (3, B, S) int for the
+    t/h/w streams; ``sections`` partitions the D/2 frequency slots among
+    the three streams in that order (the reference picks each slot's
+    stream with a one-hot product, which selects exactly)."""
+    D = x.shape[-1]
+    inv = _inv_freq(D, theta, x.device)                           # (D/2,)
+    angles = positions[..., None].float() * inv                  # (3,B,S,D/2)
+    bounds = np.cumsum((0,) + tuple(sections))
+    angles = torch.cat([angles[i, ..., bounds[i]:bounds[i + 1]]
+                        for i in range(3)], dim=-1)              # (B,S,D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention params (the attention itself runs the kernels in
 # repro_torch.kernels, or their plain versions on CPU)
@@ -152,3 +172,10 @@ def attention_init(gen, cfg, dtype, device):
         p["q_norm"] = rmsnorm_init(hd, dtype, device)
         p["k_norm"] = rmsnorm_init(hd, dtype, device)
     return p
+
+
+def cross_attention_init(gen, cfg, dtype, device):
+    """The encoder-decoder's cross-attention params: ``attention_init``'s
+    layout (queries from the decoder, keys and values from the encoder;
+    no RoPE, no mask)."""
+    return attention_init(gen, cfg, dtype, device)

@@ -1,34 +1,38 @@
-"""Model assembly: init / prefill / decode for the dense (llama / qwen /
-starcoder), moe (deepseek: MLA + MoE; grok: GQA + MoE), ssm (mamba2) and
-hybrid (zamba2: Mamba2 backbone + one weight-shared attention block)
-families, ported from the JAX package's ``models/model.py``. The encdec
-(whisper) and vlm (M-RoPE) families are not ported yet.
+"""Model assembly: init / forward / prefill / decode for every family of the
+JAX package's ``models/model.py``: dense (llama / qwen / starcoder), vlm
+(the dense backbone with M-RoPE: qwen2-vl), moe (deepseek: MLA + MoE;
+grok: GQA + MoE), ssm (mamba2), hybrid (zamba2: Mamba2 backbone + one
+weight-shared attention block) and encdec (whisper: a non-causal encoder
+over precomputed frame embeddings, a decoder with cross-attention).
 
 Conventions
 -----------
 * Params are a dict: ``{"embed": {"w"}, "final_norm": {"scale"},
   "blocks": [one dict per layer]}`` with the reference's per-layer keys
   and shapes, plus ``"dense0"`` (deepseek's leading dense layers, a list
-  like ``"blocks"``) and ``"shared"`` (zamba2's one shared block, a single
-  layer's dict). ``models/convert.py`` copies a reference pytree in.
-* Full-sequence attention (prefill, causal; the MiniLM encoder's
-  ``kind="enc"`` layers, non-causal; MLA's expanded heads) runs the
-  ``flash_attention`` kernel on CUDA, single-token GQA decode the
-  ``decode_attention`` kernel. On CPU both wrappers take their plain
-  versions, which are the naive attention the reference engine and
-  encoder run (``RunCfg(attn_impl="naive")``). ``attn_impl="naive"`` (the
-  counterpart of the reference's ``RunCfg.attn_impl``) runs the
-  full-sequence attention as that plain math on any device, under
-  autograd: the kernel has no backward, so training
-  (``MiniLMEncoder.train_contrastive``) asks for it. MLA's absorbed
-  decode (one latent head of 576/512 over the compressed cache) and the
-  MoE expert products are plain PyTorch, as they are plain einsums in the
-  reference.
+  like ``"blocks"``), ``"shared"`` (zamba2's one shared block, a single
+  layer's dict) and ``"enc_blocks"``/``"enc_norm"`` (whisper's encoder).
+  ``models/convert.py`` copies a reference pytree in and back out.
+* ``RunCfg`` carries the implementation choices of a full-sequence pass
+  (the reference's single-device knobs). ``attn_impl``:
+  ``"kernel"`` runs the ``flash_attention`` kernel on CUDA (its plain
+  version on the CPU); it has no backward, so it raises on inputs that
+  require grad. ``"naive"`` is that plain math on any device, under
+  autograd; ``"blockwise"`` (the default, as in the reference) is the
+  tiled attention of ``models/blockwise.py`` with a hand-written flash
+  backward, what training runs. ``prefill`` always runs the kernel, as
+  the serving path; single-token GQA decode (self- and cross-attention)
+  runs the ``decode_attention`` kernel on CUDA and its plain version on
+  the CPU, which are the naive attention the reference engine runs
+  (``RunCfg(attn_impl="naive")``). MLA's absorbed decode (one latent head
+  of 576/512 over the compressed cache) and the MoE expert products are
+  plain PyTorch, as they are plain einsums in the reference.
 * Decode caches, leading dim = layer (or shared-block invocation):
-    GQA    : {"k": (L,B,M,Hkv,Dh), "v": (L,B,M,Hkv,Dh)}
+    GQA    : {"k": (L,B,M,Hkv,Dh), "v": (L,B,M,Hkv,Dh)}  (dense, vlm, moe)
     MLA    : {"ckv": (L,B,M,r), "krope": (L,B,M,dr)}
     SSM    : {"h": (L,B,H,P,N) f32, "conv": (L,B,W-1,C)}
     hybrid : SSM + {"ak"/"av": (I,B,M,Hkv,Dh)}, I = shared invocations
+    encdec : GQA + {"xk"/"xv": (L,B,Tenc,Hkv,Dh)}, static after prefill
   Unlike the reference, which returns a new cache, ``decode_step`` writes
   INTO the cache it is given (no copy of the whole cache per step) and
   returns that same dict. Under ``live`` a dead slot computes its step as
@@ -39,6 +43,8 @@ Conventions
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -49,16 +55,27 @@ from repro_torch.models import layers as Lyr
 from repro_torch.models import mla as Mla
 from repro_torch.models import moe as Moe
 from repro_torch.models import ssm as Ssm
+from repro_torch.models.blockwise import blockwise_gqa
 
 DECODE_SPLITS = 8      # split-KV chunks per decode_attention launch
 
 
-def _check_ported(cfg):
-    if cfg.family in ("encdec", "vlm") or cfg.is_encoder_decoder or \
-            cfg.rope_kind == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: the encdec and vlm families and M-RoPE are not "
-            "ported (ROADMAP A9)")
+@dataclasses.dataclass(frozen=True)
+class RunCfg:
+    """Implementation knobs of a full-sequence pass, not architecture."""
+    attn_impl: str = "blockwise"      # kernel | naive | blockwise
+    schedule: str = "rect"            # rect | tri (causal tile skipping)
+    q_block: int = 512
+    kv_block: int = 1024
+    moe_impl: str = "scatter"         # scatter | einsum
+    moe_group: int = 2048
+    aux_coef: float = 0.01
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+KERNEL = RunCfg(attn_impl="kernel")   # the serving path's prefill
 
 
 # ---------------------------------------------------------------------------
@@ -68,20 +85,24 @@ def _check_ported(cfg):
 
 def init_block(gen, cfg, dtype, device, kind="dense"):
     """One layer's params: ``"dense"`` (decoder; MLA attention when the
-    config has it), ``"enc"`` (the non-causal encoder layer), ``"moe"``,
-    ``"moe_dense0"`` (deepseek's leading dense layer, ``d_ff_dense``
-    wide) or ``"ssm"``."""
+    config has it), ``"enc"`` (the non-causal encoder layer), ``"dec"``
+    (whisper's decoder layer: self-attention, ``lnx`` and the
+    cross-attention ``xattn``, MLP), ``"moe"``, ``"moe_dense0"``
+    (deepseek's leading dense layer, ``d_ff_dense`` wide) or ``"ssm"``."""
     d = cfg.d_model
     if kind == "ssm":
         return {"ln": Lyr.rmsnorm_init(d, dtype, device),
                 "ssm": Ssm.ssm_init(gen, cfg, dtype, device)}
-    if kind not in ("dense", "enc", "moe", "moe_dense0"):
+    if kind not in ("dense", "enc", "dec", "moe", "moe_dense0"):
         raise ValueError(f"block kind {kind!r}")
     attn = Mla.mla_init(gen, cfg, dtype, device) \
-        if cfg.use_mla and kind != "enc" else \
+        if cfg.use_mla and kind not in ("enc", "dec") else \
         Lyr.attention_init(gen, cfg, dtype, device)
-    p = {"ln1": Lyr.rmsnorm_init(d, dtype, device), "attn": attn,
-         "ln2": Lyr.rmsnorm_init(d, dtype, device)}
+    p = {"ln1": Lyr.rmsnorm_init(d, dtype, device), "attn": attn}
+    if kind == "dec":
+        p["lnx"] = Lyr.rmsnorm_init(d, dtype, device)
+        p["xattn"] = Lyr.cross_attention_init(gen, cfg, dtype, device)
+    p["ln2"] = Lyr.rmsnorm_init(d, dtype, device)
     if kind == "moe":
         p["moe"] = Moe.moe_init(gen, cfg, dtype, device)
     else:
@@ -92,7 +113,7 @@ def init_block(gen, cfg, dtype, device, kind="dense"):
 
 def main_block_kind(cfg) -> str:
     return {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
-            "hybrid": "ssm"}[cfg.family]
+            "hybrid": "ssm", "encdec": "dec"}[cfg.family]
 
 
 def n_shared_attn(cfg) -> int:
@@ -105,7 +126,6 @@ def init_model(cfg, generator: torch.Generator, dtype=None, device="cuda"):
     """Random weights from a seeded generator (on ``device``), with the
     reference's shapes and scales; the numbers differ from
     ``jax.random``'s, so parity tests copy reference params instead."""
-    _check_ported(cfg)
     dtype = Lyr.torch_dtype(dtype or cfg.dtype)
     vp = cfg.padded_vocab
     params = {
@@ -126,6 +146,11 @@ def init_model(cfg, generator: torch.Generator, dtype=None, device="cuda"):
                             for _ in range(n_dense0)]
     if cfg.family == "hybrid":
         params["shared"] = init_block(generator, cfg, dtype, device, "dense")
+    if cfg.is_encoder_decoder:
+        params["enc_blocks"] = [init_block(generator, cfg, dtype, device,
+                                           "enc")
+                                for _ in range(cfg.n_encoder_layers)]
+        params["enc_norm"] = Lyr.rmsnorm_init(cfg.d_model, dtype, device)
     return params
 
 
@@ -146,41 +171,58 @@ def _layers(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-def _rope_q_k(cfg, p, q, k, positions):
+def _rope_q_k(cfg, p, q, k, positions, mrope_positions=None):
     if cfg.qk_norm:
         q = Lyr.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = Lyr.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if cfg.rope_kind == "standard":
         q = Lyr.apply_rope(q, positions, cfg.rope_theta)
         k = Lyr.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        if mrope_positions is None:
+            raise ValueError(f"{cfg.name}: M-RoPE needs mrope_positions "
+                             "(3, B, S)")
+        q = Lyr.apply_mrope(q, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+        k = Lyr.apply_mrope(k, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
     return q, k
 
 
-def _attend(q, k, v, causal, attn_impl):
-    if attn_impl == "kernel":
+def _attend(q, k, v, causal, run):
+    if run.attn_impl == "kernel":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise RuntimeError(
+                "attn_impl='kernel': the flash_attention kernel has no "
+                "backward; differentiate with attn_impl='blockwise' or "
+                "'naive'")
         return ops.flash_attention(q, k, v, causal)
-    if attn_impl == "naive":
+    if run.attn_impl == "naive":
         return flash_attention_plain(q, k, v, causal)
-    raise ValueError(f"attn_impl must be 'kernel' or 'naive', got "
-                     f"{attn_impl!r}")
+    if run.attn_impl == "blockwise":
+        return blockwise_gqa(q, k, v, causal=causal, q_block=run.q_block,
+                             kv_block=run.kv_block, schedule=run.schedule)
+    raise ValueError(f"attn_impl must be 'kernel', 'naive' or 'blockwise', "
+                     f"got {run.attn_impl!r}")
 
 
-def gqa_fullseq(cfg, p, x, positions, *, causal=True, attn_impl="kernel"):
-    """Returns (out (B,S,d), {"k","v"}) for prefill and the encoder.
-    ``attn_impl``: ``"kernel"`` (B4 on CUDA, its plain version on the
-    CPU) or ``"naive"`` (the plain math on any device, differentiable)."""
+def gqa_fullseq(cfg, p, x, positions, *, causal=True, run=KERNEL,
+                mrope_positions=None):
+    """Returns (out (B,S,d), {"k","v"}) for a full sequence: prefill,
+    training, the encoders. ``run.attn_impl`` picks the attention."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = Lyr.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = Lyr.dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = Lyr.dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    q, k = _rope_q_k(cfg, p, q, k, positions)
-    out = _attend(q, k, v, causal, attn_impl)
+    q, k = _rope_q_k(cfg, p, q, k, positions, mrope_positions)
+    out = _attend(q, k, v, causal, run)
     return Lyr.dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), \
         {"k": k, "v": v}
 
 
-def mla_fullseq(cfg, p, x, positions, *, attn_impl="kernel"):
+def mla_fullseq(cfg, p, x, positions, *, run=KERNEL):
     """MLA prefill: the compressed KV expanded per head, causal attention
     with q/k of nope + rope and v of ``v_head_dim`` (B4 zero-pads v to the
     q/k width, which is exact). Returns (out, {"ckv","krope"}): the cache
@@ -194,9 +236,25 @@ def mla_fullseq(cfg, p, x, positions, *, attn_impl="kernel"):
     v = torch.einsum("bsr,rhv->bshv", ckv, p["wuv"])
     q = torch.cat([qn, qr], dim=-1)                       # (B,S,H,nope+rd)
     k = torch.cat([kn, krope.expand(B, S, H, rd)], dim=-1)
-    out = _attend(q, k, v, True, attn_impl)
+    out = _attend(q, k, v, True, run)
     return Lyr.dense(p["wo"], out.reshape(B, S, H * cfg.v_head_dim)), \
         {"ckv": ckv, "krope": krope[:, :, 0, :]}
+
+
+def cross_fullseq(cfg, p, x, enc_out, run=KERNEL):
+    """Whisper's cross-attention over the encoder output (no mask, no
+    RoPE; B4 non-causal with S = the decoder's length, T = the encoder's).
+    Returns (out, {"xk","xv"}): the projected encoder keys and values,
+    which the decode cache keeps."""
+    B, S, _ = x.shape
+    Te = enc_out.shape[1]
+    hd = cfg.resolved_head_dim
+    q = Lyr.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    xk = Lyr.dense(p["wk"], enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
+    xv = Lyr.dense(p["wv"], enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
+    out = _attend(q, xk, xv, False, run)
+    return Lyr.dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), \
+        {"xk": xk, "xv": xv}
 
 
 # ---------------------------------------------------------------------------
@@ -226,10 +284,12 @@ def _decode_pos(cache_len: int, c) -> int:
     return min(cache_len, c.shape[1] - 1)
 
 
-def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None):
+def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None,
+               mrope_positions=None):
     """x (B,1,d); kc/vc (B,M,Hkv,Dh), written in place at ``cache_len``
-    (put back afterwards for the rows where ``live`` is False). Returns
-    out (B,1,d)."""
+    (put back afterwards for the rows where ``live`` is False). M-RoPE
+    positions default to ``cache_len`` on all three streams, as in the
+    reference. Returns out (B,1,d)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -238,7 +298,9 @@ def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None):
     q = Lyr.dense(p["wq"], x).reshape(B, 1, Hq, hd)
     k = Lyr.dense(p["wk"], x).reshape(B, 1, Hkv, hd)
     v = Lyr.dense(p["wv"], x).reshape(B, 1, Hkv, hd)
-    q, k = _rope_q_k(cfg, p, q, k, positions)
+    if mrope_positions is None and cfg.rope_kind == "mrope":
+        mrope_positions = positions[None].expand(3, B, 1)
+    q, k = _rope_q_k(cfg, p, q, k, positions, mrope_positions)
     pos = _decode_pos(cache_len, kc)
     olds = [_write(c, pos, new[:, 0], live) for c, new in ((kc, k), (vc, v))]
     out = ops.decode_attention(q[:, 0], kc, vc, lengths, DECODE_SPLITS)
@@ -248,6 +310,21 @@ def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None):
     # batched cache) before the f32 output projection
     out = out.to(kc.dtype).to(x.dtype)
     return Lyr.dense(p["wo"], out.reshape(B, 1, Hq * hd))
+
+
+def cross_decode(cfg, p, x, xk, xv):
+    """One token's cross-attention over the static encoder keys and values
+    xk/xv (B,Te,Hkv,Dh): B3 with ``lengths = Te - 1`` attends every
+    position (its mask is inclusive), the reference's unmasked
+    ``gqa_scores_softmax_out``. Returns out (B,1,d)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = Lyr.dense(p["wq"], x).reshape(B, cfg.n_heads, hd)
+    lengths = torch.full((B,), xk.shape[1] - 1, dtype=torch.int32,
+                         device=x.device)
+    out = ops.decode_attention(q, xk, xv, lengths, DECODE_SPLITS)
+    out = out.to(xk.dtype).to(x.dtype)
+    return Lyr.dense(p["wo"], out.reshape(B, 1, cfg.n_heads * hd))
 
 
 def mla_decode(cfg, p, x, ckv_c, krope_c, cache_len: int, live=None):
@@ -288,37 +365,59 @@ def mla_decode(cfg, p, x, ckv_c, krope_c, cache_len: int, live=None):
 # ---------------------------------------------------------------------------
 
 
-def _ffn(cfg, p, x, kind):
+def _ffn(cfg, p, x, kind, run=KERNEL, with_aux=False):
+    """The layer's FFN on its pre-norm input; with ``with_aux`` also the
+    MoE load-balance loss (0 for a dense layer), which training reads."""
     h = Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    if kind == "moe":
-        return Moe.moe_ffn(cfg, p["moe"], h)
-    return Lyr.mlp(cfg, p["mlp"], h)
+    if kind != "moe":
+        y = Lyr.mlp(cfg, p["mlp"], h)
+        return (y, x.new_zeros((), dtype=torch.float32)) if with_aux else y
+    if run.moe_impl == "einsum":
+        y, aux = Moe.moe_ffn_einsum(cfg, p["moe"], h, run.moe_group)
+        return (y, aux) if with_aux else y
+    if run.moe_impl != "scatter":
+        raise ValueError(f"moe_impl must be 'scatter' or 'einsum', got "
+                         f"{run.moe_impl!r}")
+    return Moe.moe_ffn(cfg, p["moe"], h, with_aux=with_aux)
 
 
-def block_fullseq(cfg, p, x, positions, kind="dense", attn_impl="kernel"):
+def block_fullseq(cfg, p, x, positions, kind="dense", run=KERNEL, *,
+                  mrope_positions=None, enc_out=None, with_aux=False):
     """One layer over a full sequence: ``"dense"``/``"moe"``/
-    ``"moe_dense0"`` attend causally, ``"enc"`` to every position,
-    ``"ssm"`` runs the SSD scan. Returns (x, this layer's cache entries).
-    ``attn_impl`` as in ``gqa_fullseq``."""
+    ``"moe_dense0"``/``"dec"`` attend causally (``"dec"`` then to
+    ``enc_out`` through its cross-attention), ``"enc"`` to every position,
+    ``"ssm"`` runs the SSD scan. Returns (x, aux, this layer's cache
+    entries); ``aux`` is the MoE load-balance loss when ``with_aux``
+    (else None)."""
     if kind == "ssm":
         h, (hs, conv) = Ssm.ssm_forward(
             cfg, p["ssm"], Lyr.rmsnorm(p["ln"], x, cfg.norm_eps))
-        return x + h, {"h": hs, "conv": conv}
-    if kind not in ("dense", "enc", "moe", "moe_dense0"):
+        aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
+        return x + h, aux, {"h": hs, "conv": conv}
+    if kind not in ("dense", "enc", "dec", "moe", "moe_dense0"):
         raise ValueError(f"block kind {kind!r}")
     xin = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if cfg.use_mla and kind != "enc":
-        h, kv = mla_fullseq(cfg, p["attn"], xin, positions,
-                            attn_impl=attn_impl)
+    if cfg.use_mla and kind not in ("enc", "dec"):
+        h, kv = mla_fullseq(cfg, p["attn"], xin, positions, run=run)
     else:
         h, kv = gqa_fullseq(cfg, p["attn"], xin, positions,
-                            causal=(kind != "enc"), attn_impl=attn_impl)
+                            causal=(kind != "enc"), run=run,
+                            mrope_positions=mrope_positions)
     x = x + h
-    return x + _ffn(cfg, p, x, kind), kv
+    if kind == "dec":
+        h, xkv = cross_fullseq(cfg, p["xattn"],
+                               Lyr.rmsnorm(p["lnx"], x, cfg.norm_eps),
+                               enc_out, run)
+        x = x + h
+        kv = dict(kv, **xkv)
+    if with_aux:
+        y, aux = _ffn(cfg, p, x, kind, run, with_aux=True)
+        return x + y, aux, kv
+    return x + _ffn(cfg, p, x, kind, run), None, kv
 
 
 def block_decode(cfg, p, x, csl, cache_len: int, lengths, live=None,
-                 kind="dense"):
+                 kind="dense", mrope_positions=None):
     """One layer, one token; ``csl`` is this layer's cache slice (its
     leaves without the layer dim), updated in place."""
     if kind == "ssm":
@@ -338,13 +437,17 @@ def block_decode(cfg, p, x, csl, cache_len: int, lengths, live=None,
                        cache_len, live)
     else:
         h = gqa_decode(cfg, p["attn"], xin, csl["k"], csl["v"], cache_len,
-                       lengths, live)
+                       lengths, live, mrope_positions)
     x = x + h
+    if kind == "dec":
+        x = x + cross_decode(cfg, p["xattn"],
+                             Lyr.rmsnorm(p["lnx"], x, cfg.norm_eps),
+                             csl["xk"], csl["xv"])
     return x + _ffn(cfg, p, x, kind)
 
 
 # ---------------------------------------------------------------------------
-# Embedding / head
+# Embedding / head / positions
 # ---------------------------------------------------------------------------
 
 
@@ -365,8 +468,36 @@ def lm_logits(cfg, params, x):
     return logits
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoid(seq_len: int, d_model: int, device: torch.device):
+    # one host->device copy per (length, width, device), not one a step
+    return Lyr.sinusoidal_positions(seq_len, d_model).to(device)
+
+
+def _positions(batch, tokens):
+    if batch.get("positions") is not None:
+        return batch["positions"]
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+
+def _encode(cfg, params, frames, run=KERNEL):
+    """Whisper's encoder over (stub-)precomputed frame embeddings (B, Te,
+    d), taken in the params' dtype (torch does not mix dtypes in a
+    product): sinusoidal positions added, ``n_encoder_layers``
+    non-causal layers, ``enc_norm``."""
+    B, Te, _ = frames.shape
+    frames = frames.to(params["enc_norm"]["scale"].dtype)
+    x = frames + _sinusoid(Te, cfg.d_model, frames.device).to(
+        frames.dtype)[None]
+    pos = torch.arange(Te, device=frames.device)[None].expand(B, Te)
+    for p in params["enc_blocks"]:
+        x, _, _ = block_fullseq(cfg, p, x, pos, kind="enc", run=run)
+    return Lyr.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
-# Prefill / cache / decode
+# Full sequence: the layer stack shared by forward and prefill
 # ---------------------------------------------------------------------------
 
 
@@ -385,49 +516,122 @@ def _pad_seq(t, max_len: int):
     return out
 
 
-def prefill(cfg, params, tokens, max_len: Optional[int] = None):
-    """tokens (B,S) -> (logits of the last position (B,1,V), cache with
-    seq dims zero-padded to ``max_len``) in the params' dtype (``h`` f32)."""
-    _check_ported(cfg)
+def _run_stack(cfg, params, tokens, run, *, positions=None, frames=None,
+               mrope_positions=None, with_aux=False, build_cache=False):
+    """Embed ``tokens`` and run every layer. Returns (x (B,S,d), the MoE
+    aux loss summed over layers (None unless ``with_aux``), the cache
+    entries per layer kind (None unless ``build_cache``))."""
     B, S = tokens.shape
-    max_len = max_len or S
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = embed_tokens(cfg, params, tokens)
+    aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder needs frames "
+                             "(B, encoder_seq, d_model)")
+        enc_out = _encode(cfg, params, frames, run)
+        x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
+    entries, attn = [], []
+
+    def layer(p, kind, **kw):
+        nonlocal x, aux
+        x, a, kv = block_fullseq(cfg, p, x, positions, kind, run,
+                                 with_aux=with_aux, **kw)
+        if with_aux:
+            aux = aux + a
+        return kv
+
     if cfg.family == "hybrid":
         k_every = cfg.hybrid_attn_every
-        states, attn = [], []
         for i, lp in enumerate(params["blocks"]):
             if k_every and i % k_every == 0:
-                x, kv = block_fullseq(cfg, params["shared"], x, positions)
-                attn.append(kv)
-            x, st = block_fullseq(cfg, lp, x, positions, kind="ssm")
-            states.append(st)
-        cache = _stack(states)
-        akv = _stack(attn)
-        cache["ak"] = _pad_seq(akv["k"], max_len)
-        cache["av"] = _pad_seq(akv["v"], max_len)
+                attn.append(layer(params["shared"], "dense"))
+            entries.append(layer(lp, "ssm"))
+    elif cfg.is_encoder_decoder:
+        for lp in params["blocks"]:
+            entries.append(layer(lp, "dec", enc_out=enc_out))
     else:
-        entries = []
         for kind, lp in _layers(cfg, params):
-            x, kv = block_fullseq(cfg, lp, x, positions, kind=kind)
-            entries.append(kv)
+            entries.append(layer(lp, kind, mrope_positions=mrope_positions))
+    cache = None
+    if build_cache:
         cache = _stack(entries)
-        if cfg.family != "ssm":
-            cache = {n: _pad_seq(t, max_len) for n, t in cache.items()}
+        if attn:
+            akv = _stack(attn)
+            cache["ak"], cache["av"] = akv["k"], akv["v"]
+    return x, aux, cache
+
+
+def forward(cfg, params, batch, run=RunCfg()):
+    """Full-sequence forward over ``batch`` ({"tokens" (B,S)} and, per
+    family, "frames" (B,Te,d), "mrope_positions" (3,B,S), "positions"
+    (B,S)). Returns (logits (B,S,V), {"moe_aux": the load-balance loss
+    summed over MoE layers, f32})."""
+    tokens = batch["tokens"]
+    x, aux, _ = _run_stack(cfg, params, tokens, run,
+                           positions=_positions(batch, tokens),
+                           frames=batch.get("frames"),
+                           mrope_positions=batch.get("mrope_positions"),
+                           with_aux=True)
+    return lm_logits(cfg, params, x), {"moe_aux": aux}
+
+
+def lm_loss(cfg, params, batch, run=RunCfg()):
+    """Causal LM cross-entropy over ``batch["labels"]`` (-1 ignored) plus
+    ``run.aux_coef`` times the MoE aux loss. Returns (loss, {"loss": the
+    cross-entropy, "moe_aux"})."""
+    logits, aux = forward(cfg, params, batch, run)
+    labels = batch["labels"]
+    lg = logits.float()
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    picked = lg.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - picked
+    valid = (labels >= 0).float()
+    loss = (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return loss + run.aux_coef * aux["moe_aux"], {
+        "loss": loss, "moe_aux": aux["moe_aux"]}
+
+
+# ---------------------------------------------------------------------------
+# Prefill / cache / decode
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg, params, tokens, max_len: Optional[int] = None, *,
+            frames=None, mrope_positions=None):
+    """tokens (B,S) -> (logits of the last position (B,1,V), cache with
+    the self-attention seq dims zero-padded to ``max_len``) in the params'
+    dtype (``h`` f32). ``frames`` (B,Te,d): the encoder-decoder's input;
+    ``mrope_positions`` (3,B,S): the vlm's t/h/w positions. Every
+    attention runs B4 on CUDA."""
+    S = tokens.shape[1]
+    max_len = max_len or S
+    x, _, cache = _run_stack(cfg, params, tokens, KERNEL, frames=frames,
+                             mrope_positions=mrope_positions,
+                             build_cache=True)
+    if cfg.family != "ssm":
+        # xk/xv keep the encoder's length; the SSM leaves have no seq dim
+        cache = {n: t if n in ("h", "conv", "xk", "xv") else
+                 _pad_seq(t, max_len) for n, t in cache.items()}
     return lm_logits(cfg, params, x[:, -1:]), cache
 
 
 def cache_struct(cfg, batch, max_len, dtype=None):
     """{name: (shape, dtype)} of the decode cache (``h`` always f32)."""
-    _check_ported(cfg)
     dt = Lyr.torch_dtype(dtype or cfg.dtype)
     L, B, M = cfg.n_layers, batch, max_len
     if cfg.use_mla:
         return {"ckv": ((L, B, M, cfg.kv_lora_rank), dt),
                 "krope": ((L, B, M, cfg.qk_rope_head_dim), dt)}
     kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return {"k": ((L, B, M) + kv, dt), "v": ((L, B, M) + kv, dt)}
+    if cfg.is_encoder_decoder:
+        Te = cfg.encoder_seq
+        return {"k": ((L, B, M) + kv, dt), "v": ((L, B, M) + kv, dt),
+                "xk": ((L, B, Te) + kv, dt), "xv": ((L, B, Te) + kv, dt)}
     H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     C = cfg.d_inner_ssm + 2 * cfg.ssm_n_groups * N
     out = {"h": ((L, B, H, P, N), torch.float32),
@@ -444,11 +648,14 @@ def init_cache(cfg, batch, max_len, dtype=None, device="cuda"):
             for n, (s, d) in cache_struct(cfg, batch, max_len, dtype).items()}
 
 
-def decode_step(cfg, params, token, cache, cache_len: int, live=None):
+def decode_step(cfg, params, token, cache, cache_len: int, live=None,
+                mrope_positions=None):
     """token (B,1) int; cache per ``cache_struct`` (updated in place);
     cache_len: the position this token is written at (it attends
     [0, cache_len]). ``live`` (B,) bool keeps the cache rows of dead
-    slots as they were. Returns (logits (B,1,V), cache)."""
+    slots as they were. ``mrope_positions`` (3,B,1): the vlm's position
+    of this token (default ``cache_len`` on every stream). Returns
+    (logits (B,1,V), cache)."""
     B = token.shape[0]
     x = embed_tokens(cfg, params, token)
     lengths = torch.full((B,), cache_len, dtype=torch.int32,
@@ -465,8 +672,15 @@ def decode_step(cfg, params, token, cache, cache_len: int, live=None):
             x = block_decode(cfg, lp, x, {"h": cache["h"][i],
                                           "conv": cache["conv"][i]},
                              cache_len, lengths, live, kind="ssm")
-    else:
-        for i, (kind, lp) in enumerate(_layers(cfg, params)):
-            x = block_decode(cfg, lp, x, {n: t[i] for n, t in cache.items()},
-                             cache_len, lengths, live, kind=kind)
+        return lm_logits(cfg, params, x), cache
+    if cfg.is_encoder_decoder:
+        # the position row at cache_len, clamped past the end as the
+        # reference's dynamic_slice is
+        M = cache["k"].shape[2]
+        x = x + _sinusoid(M, cfg.d_model, x.device)[
+            min(cache_len, M - 1)].to(x.dtype)
+    for i, (kind, lp) in enumerate(_layers(cfg, params)):
+        x = block_decode(cfg, lp, x, {n: t[i] for n, t in cache.items()},
+                         cache_len, lengths, live, kind=kind,
+                         mrope_positions=mrope_positions)
     return lm_logits(cfg, params, x), cache

@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with capacity-bounded sort-free dispatch, ported
-from the JAX package's ``models/moe.py`` (its ``moe_ffn``, the scatter
-dispatch that ``RunCfg.moe_impl`` selects by default).
+from the JAX package's ``models/moe.py``: ``moe_ffn``, the scatter
+dispatch that ``RunCfg.moe_impl`` selects by default, and
+``moe_ffn_einsum``, the GShard grouped dispatch (``moe_impl="einsum"``).
 
 Exact top-k routing with a per-call token capacity: tokens are scattered
 into an (E, C, d) buffer by (expert, rank) slot, the experts run as one
@@ -91,14 +92,14 @@ def expert_ffn(cfg, experts, buf):
     return torch.bmm(h1 * h3, experts["w2"])
 
 
-def moe_ffn(cfg, p, x):
+def moe_ffn(cfg, p, x, with_aux=False):
     """x: (B, S, d) -> y. Exact top-k with capacity drop. The reference's
     ``moe_ffn`` also returns the aux loss, which only training reads:
-    here it is ``load_balance_loss`` over ``route``'s outputs."""
+    ``with_aux`` returns (y, ``load_balance_loss``) as it does."""
     B, S, d = x.shape
     T = B * S
     x2d = x.reshape(T, d)
-    w, idx, _ = route(cfg, p, x2d)
+    w, idx, probs = route(cfg, p, x2d)
     slot, valid, C = dispatch_slots(cfg, idx, T)
     E, K = cfg.n_experts, cfg.experts_per_tok
 
@@ -114,4 +115,59 @@ def moe_ffn(cfg, p, x):
 
     if cfg.n_shared_experts:
         y = y + mlp(cfg, p["shared"], x2d)
-    return y.reshape(B, S, d)
+    y = y.reshape(B, S, d)
+    return (y, load_balance_loss(cfg, probs, idx)) if with_aux else y
+
+
+# ---------------------------------------------------------------------------
+# GShard-style grouped einsum dispatch (``RunCfg(moe_impl="einsum")``)
+# ---------------------------------------------------------------------------
+
+
+def combine_tensor(cfg, idx, w, valid, C):
+    """(g,K) expert ids and weights -> (g, E, C) f32 combine weights: an
+    assignment lands at (its expert, its rank among the group's earlier
+    assignments to that expert) unless that rank is C or more (dropped).
+    ``jax.nn.one_hot`` gives a zero row for an out-of-range index, which
+    the comparison with ``arange(C)`` reproduces."""
+    E = cfg.n_experts
+    flat_e = idx.reshape(-1)
+    onehot = F.one_hot(flat_e, E)
+    rank = torch.cumsum(onehot, dim=0) - onehot
+    rank = rank.gather(1, flat_e[:, None])[:, 0].reshape(idx.shape)
+    ok = valid & (rank < C)
+    oh_e = F.one_hot(idx, E).float()                              # (g,K,E)
+    oh_c = (rank[..., None] == torch.arange(C, device=idx.device)).float()
+    return torch.einsum("gk,gke,gkc->gec", w * ok.float(), oh_e, oh_c)
+
+
+def moe_ffn_einsum(cfg, p, x, group_size=2048):
+    """GShard dispatch: the tokens in groups of ``group_size``, each with
+    its own (g, E, C) combine tensor and capacity; dispatch, the experts
+    and the combine are all products. Returns (y, aux loss), as the
+    reference's."""
+    B, S, d = x.shape
+    T = B * S
+    g = min(group_size, T)
+    n = T // g
+    if n * g != T:
+        raise ValueError(f"moe_ffn_einsum: {T} tokens are not a whole number "
+                         f"of groups of {g}")
+    x2d = x.reshape(T, d)
+    w, idx, probs = route(cfg, p, x2d)
+    C = capacity(cfg, g)
+    K = cfg.experts_per_tok
+    ig, wg = idx.reshape(n, g, K), w.reshape(n, g, K)
+    every = torch.ones_like(ig[0], dtype=torch.bool)
+    comb = torch.stack([combine_tensor(cfg, ig[i], wg[i], every, C)
+                        for i in range(n)])                    # (n,g,E,C)
+    disp = (comb > 0).to(x.dtype)
+    buf = torch.einsum("ngec,ngd->necd", disp, x2d.reshape(n, g, d))
+    ex = p["experts"]
+    h1 = F.silu(torch.einsum("necd,edf->necf", buf, ex["w1"]))
+    h3 = torch.einsum("necd,edf->necf", buf, ex["w3"])
+    out = torch.einsum("necf,efd->necd", h1 * h3, ex["w2"])
+    y = torch.einsum("ngec,necd->ngd", comb.to(x.dtype), out).reshape(T, d)
+    if cfg.n_shared_experts:
+        y = y + mlp(cfg, p["shared"], x2d)
+    return y.reshape(B, S, d), load_balance_loss(cfg, probs, idx)

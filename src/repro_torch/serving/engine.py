@@ -13,7 +13,11 @@ Components:
                     per-slot cancellation == StorInfer hit-cancellation
 
 PyTorch runs eagerly, so there is nothing to compile; the caches are
-updated in place (see ``models/model.py``).
+updated in place (see ``models/model.py``). An EOS among a chunk's tokens
+is kept in ``out_ids`` and ends the request in that chunk (the
+reference's engine drops it and decodes on). The encdec and vlm families
+are not served here: they need frames or M-RoPE positions, which a
+tokens-only prefill does not have.
 """
 from __future__ import annotations
 
@@ -46,6 +50,15 @@ class Engine:
 
     def __init__(self, cfg, params, tokenizer, max_len: int = 256,
                  chunk: int = 8):
+        if cfg.family in ("encdec", "vlm"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family is served through the "
+                "model API (models/model.py: prefill with frames or "
+                "mrope_positions, decode_step), not the Engine: the "
+                "reference's engine prefills tokens only "
+                "(src/repro/serving/engine.py:54-58), so it has no "
+                + ("frames" if cfg.family == "encdec" else
+                   "M-RoPE positions") + " to pass")
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer
@@ -160,9 +173,11 @@ class Session:
                                  self.generator, self.temperature, self.live)
         self.cache_len -= 1
         for t in toks[0].tolist():
-            if len(self.out_ids) >= self.max_new or t == EOS:
+            if len(self.out_ids) >= self.max_new:
                 break
             self.out_ids.append(int(t))
+            if t == EOS:        # kept, so ``done`` sees it
+                break
         self.decode_s += time.perf_counter() - t0
         self.chunks_run += 1
 
@@ -315,9 +330,11 @@ class BatchScheduler:
                 continue
             r.chunks += 1
             for t in toks[slot]:
-                if len(r.out_ids) >= r.max_new or t == EOS:
+                if len(r.out_ids) >= r.max_new:
                     break
                 r.out_ids.append(int(t))
+                if t == EOS:    # kept, so ``_retire`` sees it
+                    break
         self._retire()
         return True
 

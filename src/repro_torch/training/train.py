@@ -1,0 +1,91 @@
+"""Train step: loss -> grads (with microbatch accumulation) -> AdamW,
+ported from the JAX package's ``training/train.py`` for one device.
+
+``make_train_step(cfg, run, ocfg, accum, compress)`` returns
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
+over a batch of tensors ({"tokens", "labels"} and, per family, "frames",
+"mrope_positions"). Gradient accumulation runs ``accum`` microbatches
+(the batch split on its leading dim; ``mrope_positions`` (3, B, S) on
+dim 1), summing f32 grads and dividing by ``accum``; the loss is the mean
+of the microbatches' losses. Optional int8 gradient compression (error
+feedback) is applied between accumulation and the optimizer — see
+``repro_torch.training.compression``. The params and the optimizer state
+are updated in place (``optimizer.update``).
+
+The attention under autograd must be ``RunCfg(attn_impl="blockwise")``
+(the reference's default) or ``"naive"``: the ``flash_attention`` kernel
+has no backward and raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.convert import tree_leaves, tree_map
+from repro_torch.training import optimizer as O
+
+
+def _split_batch(batch, accum):
+    """(B, ...) -> ``accum`` microbatches of B/accum on every leaf's batch
+    dim (dim 1 of ``mrope_positions``)."""
+    out = [{} for _ in range(accum)]
+    for k, v in batch.items():
+        dim = 1 if k == "mrope_positions" else 0
+        B = v.shape[dim]
+        if B % accum:
+            raise ValueError(f"batch {B} is not a multiple of accum {accum}")
+        for i, part in enumerate(v.chunk(accum, dim=dim)):
+            out[i][k] = part
+    return out
+
+
+def make_grad_fn(cfg, run):
+    """``grad_fn(params, batch) -> (loss, metrics, grads)``: grads a list in
+    ``tree_leaves(params)`` order, in the params' dtypes (zeros for a
+    param the loss does not reach, as ``jax.grad`` gives)."""
+
+    def grad_fn(params, batch):
+        leaves = list(tree_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss, metrics = M.lm_loss(cfg, params, batch, run)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves)]
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads
+
+    return grad_fn
+
+
+def make_train_step(cfg, run=M.RunCfg(), ocfg=O.AdamWCfg(), accum=1,
+                    compress=None):
+    grad_fn = make_grad_fn(cfg, run)
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            loss, metrics, grads = grad_fn(params, batch)
+            grads = [g.float() for g in grads]
+        else:
+            grads, losses = None, []
+            for mb in _split_batch(batch, accum):
+                l, _, g = grad_fn(params, mb)
+                losses.append(l)
+                grads = [x.float() for x in g] if grads is None else \
+                    [a + b.float() for a, b in zip(grads, g)]
+            grads = [g / accum for g in grads]
+            loss = torch.stack(losses).mean()
+            metrics = {"loss": loss,
+                       "moe_aux": torch.zeros((), device=loss.device)}
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        if compress is not None:
+            grads, opt_state = compress(grads, opt_state)
+        params, opt_state, om = O.update(ocfg, grads, opt_state, params)
+        return params, opt_state, dict(metrics, **om, loss=loss)
+
+    return train_step

@@ -10,7 +10,13 @@ MLP; qwen2.5-32b: QKV bias) and two head groupings ``reduced()`` hides
 (G = 9 and G = 3); and on qwen3's, ``BatchScheduler`` (bf16 cache) and
 the cancel/retire sequence of a scripted scheduler run. Everything runs
 on the CPU, where the attention wrappers take their plain versions (the
-reference engine's naive math)."""
+reference engine's naive math).
+
+An EOS inside a decode chunk ends a port request (ROADMAP C4): the last
+tests force one with a logit bias on the EOS id and hold the port's
+``Session``, ``BatchScheduler`` and ``generate_batch`` to the reference
+with the same two-line change (``_eos_reference``), beside the
+unpatched reference, which decodes on past it."""
 import dataclasses
 import functools
 
@@ -20,9 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from _eos_reference import EosBatchScheduler, EosEngine
 from repro.configs import get_config, reduced
 from repro.core.kb import build_kb
-from repro.core.tokenizer import Tokenizer
+from repro.core.tokenizer import EOS, Tokenizer
 from repro.models import model as M
 from repro.serving import engine as E
 from repro_torch.configs import get_config as t_get_config
@@ -98,12 +105,14 @@ FAMILY_ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b", "mamba2-130m",
 
 
 def test_registered_archs_are_the_dense_family():
-    """The registered archs are the dense family's six and the moe, ssm
-    and hybrid configs (the encdec and vlm families are not ported), each
-    with the reference's parameter count."""
+    """The registered archs are the dense family's six, the moe, ssm and
+    hybrid configs and the encdec and vlm ones: every arch the reference
+    registers, each with the reference's parameter count."""
+    from repro.configs import list_configs as ref_list_configs
     from repro_torch.configs import list_configs
-    assert list_configs() == sorted(ARCHS + FAMILY_ARCHS)
-    for arch in ARCHS + FAMILY_ARCHS:
+    archs = ARCHS + FAMILY_ARCHS + ["whisper-base", "qwen2-vl-72b"]
+    assert list_configs() == sorted(archs) == ref_list_configs()
+    for arch in archs:
         assert t_get_config(arch).param_count() == \
             get_config(arch).param_count()
     assert t_get_config("storinfer-paper-8b").param_count() == \
@@ -272,3 +281,84 @@ def test_generate_and_generate_batch_match_reference(engines):
     text = port.generate(PROMPTS[0], max_new=10, temperature=0.8, seed=3)
     assert text == port.generate(PROMPTS[0], max_new=10, temperature=0.8,
                                  seed=3)      # one seed, one sample
+
+
+# ---------------------------------------------------------------------------
+# C4: an EOS inside a decode chunk ends the request
+# ---------------------------------------------------------------------------
+
+# the logit bias on the EOS id that makes the reduced qwen2.5-32b (an
+# untied head, so the bias is a head bias in both packages) pick EOS as
+# the 14th token of the first prompt: inside its second decode chunk
+EOS_BIAS = 1.5
+
+
+@functools.lru_cache(maxsize=None)
+def _eos_engines():
+    """(unpatched reference, reference with the port's EOS rule, port) on
+    the reduced qwen2.5-32b with an EOS logit bias."""
+    ref, port = _engines("qwen2.5-32b")
+    bias = np.zeros(ref.cfg.padded_vocab, np.float32)
+    bias[EOS] = EOS_BIAS
+    params = dict(ref.params, lm_head={"w": ref.params["lm_head"]["w"],
+                                       "b": jnp.asarray(bias)})
+    run = M.RunCfg(attn_impl="naive", remat=False)
+    plain = E.Engine(ref.cfg, params, ref.tok, run, max_len=MAX_LEN,
+                     chunk=CHUNK)
+    patched = EosEngine(ref.cfg, params, ref.tok, run, max_len=MAX_LEN,
+                        chunk=CHUNK)
+    tparams = dict(port.params, lm_head={"w": port.params["lm_head"]["w"],
+                                         "b": torch.from_numpy(bias)})
+    return plain, patched, TE.Engine(port.cfg, tparams, port.tok,
+                                     max_len=MAX_LEN, chunk=CHUNK)
+
+
+def _session(engine, prompt, max_new=24):
+    s = engine.start_session(prompt, max_new=max_new)
+    while not s.done:
+        s.step_chunk()
+    return s
+
+
+def test_reference_decodes_past_a_mid_chunk_eos():
+    """The unpatched reference meets the EOS inside its second chunk, drops
+    it and decodes on to ``max_new`` tokens; with the EOS kept, the same
+    stream ends there, in the chunk that produced it."""
+    plain, patched, _ = _eos_engines()
+    a, b = _session(plain, PROMPTS[0]), _session(patched, PROMPTS[0])
+    n = len(b.out_ids)
+    assert b.out_ids[-1] == EOS and 1 < n < 24 and n % CHUNK != 1
+    assert b.chunks_run == -(-(n - 1) // CHUNK)
+    assert EOS not in a.out_ids and len(a.out_ids) == 24
+    assert a.out_ids[:n - 1] == b.out_ids[:-1]
+    assert a.chunks_run > b.chunks_run
+
+
+def test_eos_mid_chunk_ends_the_port_session():
+    """The port's ``Session`` keeps the EOS and stops: token for token the
+    patched reference, in as many chunks; the text skips the EOS."""
+    plain, patched, port = _eos_engines()
+    for prompt in PROMPTS[:3]:
+        want, got = _session(patched, prompt), _session(port, prompt)
+        assert got.out_ids == want.out_ids
+        assert got.chunks_run == want.chunks_run
+        assert got.text() == want.text()
+    assert _session(port, PROMPTS[0]).out_ids[-1] == EOS
+
+
+def test_eos_mid_chunk_retires_the_port_batch_slot():
+    """``BatchScheduler`` (bf16 cache, 3 slots, several waves): each request
+    that meets an EOS retires in that chunk, as in the patched reference;
+    ``generate_batch`` gives the patched reference's texts."""
+    _, patched, port = _eos_engines()
+    rs, ts = EosBatchScheduler(patched, batch_size=3), \
+        TE.BatchScheduler(port, batch_size=3)
+    for i, p in enumerate(PROMPTS):
+        rs.submit(E.Request(rid=i, prompt=p, max_new=20))
+        ts.submit(TE.Request(rid=i, prompt=p, max_new=20))
+    want = {r.rid: (r.out_ids, r.chunks) for r in rs.run_to_completion()}
+    got = {r.rid: (r.out_ids, r.chunks) for r in ts.run_to_completion()}
+    assert got == want
+    assert any(ids[-1] == EOS and len(ids) < 20 for ids, _ in got.values())
+    assert port.generate_batch(PROMPTS, max_new=20, batch_size=3) == \
+        patched.generate_batch(PROMPTS, max_new=20, batch_size=3)

@@ -21,6 +21,11 @@ enters in the cache's bf16 and leaves in f32 (``ssm_decode`` widens the
 window), which ``lax.scan`` refuses. Those archs' scheduler runs are held
 to the reference engine with that one leaf cast back to the cache's dtype
 each step (``_CastEngine``), which is what the port's in-place write does.
+
+The reference engines here keep an EOS that falls inside a decode chunk,
+as the port does (``_eos_reference.EosEngine``; ROADMAP C4): the
+reference's own engine drops it and decodes on, and deepseek's and
+mamba2's streams meet one.
 """
 import dataclasses
 import functools
@@ -31,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _eos_reference import EosBatchScheduler, EosEngine
 from repro.configs import get_config, reduced
 from repro.core.kb import build_kb
 from repro.core.tokenizer import Tokenizer
@@ -311,7 +317,7 @@ def test_ssm_refuses_a_length_past_one_chunk_not_a_multiple():
 # ---------------------------------------------------------------------------
 
 
-class _CastEngine(E.Engine):
+class _CastEngine(EosEngine):
     """The reference engine whose decode chunk casts each new cache leaf
     back to the carried leaf's dtype (``conv``: bf16 in the batched cache),
     so that its ``lax.scan`` accepts an ssm or hybrid cache. Otherwise the
@@ -346,7 +352,7 @@ def _engines(arch):
     tok = Tokenizer.from_texts(texts, max_vocab=512)
     cfg, tcfg = _cfgs(arch, vocab_size=tok.vocab_size)
     params = M.init_model(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
-    cls = _CastEngine if cfg.family in ("ssm", "hybrid") else E.Engine
+    cls = _CastEngine if cfg.family in ("ssm", "hybrid") else EosEngine
     ref = cls(cfg, params, tok, RUN, max_len=MAX_LEN, chunk=CHUNK)
     port = TE.Engine(tcfg, params_from_jax(_np(params), device="cpu"),
                      TTokenizer.from_texts(texts, max_vocab=512),
@@ -371,13 +377,17 @@ def test_configs_are_the_reference_configs(arch):
 
 
 def test_encdec_and_vlm_still_refused():
+    """The model API runs both families now (``tests/test_torch_encdec_vlm
+    .py``); the serving ``Engine`` still refuses them, since it prefills
+    tokens only, as the reference's does."""
     for arch in ("whisper-base", "qwen2-vl-72b"):
         tcfg = TModelConfig(**dataclasses.asdict(reduced(get_config(arch))))
-        with pytest.raises(NotImplementedError, match="A9"):
-            TM.init_model(tcfg, torch.Generator().manual_seed(0),
-                          device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
-            TM.init_cache(tcfg, 1, 8, device="cpu")
+        params = TM.init_model(tcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        assert set(TM.init_cache(tcfg, 1, 8, device="cpu")) == \
+            set(M.cache_struct(reduced(get_config(arch)), 1, 8))
+        with pytest.raises(NotImplementedError, match="prefills tokens only"):
+            TE.Engine(tcfg, params, None)
 
 
 def test_converted_params_match_shapes(family):
@@ -454,12 +464,12 @@ def test_greedy_session_tokens_identical(family, prompt):
     assert t.chunks_run == s.chunks_run
 
 
-def _scripted(mod, engine):
+def _scripted(mod, engine, sched_cls=None):
     """Submit five requests over two slots, cancel one live and one
     waiting request after the first chunk (the live one's slot decodes on
     dead until the wave drains), and record each chunk's live slots and
     finished requests."""
-    sched = mod.BatchScheduler(engine, batch_size=2)
+    sched = (sched_cls or mod.BatchScheduler)(engine, batch_size=2)
     for i, p in enumerate(PROMPTS):
         sched.submit(mod.Request(rid=i, prompt=p, max_new=10 + 4 * i))
     trace = []
@@ -483,7 +493,7 @@ def test_batch_scheduler_with_a_dead_slot_identical(family):
     ref, port = family
     for n, t in TM.init_cache(port.cfg, 2, MAX_LEN, device="cpu").items():
         assert t.dtype == (torch.float32 if n == "h" else torch.bfloat16)
-    got, want = _scripted(TE, port), _scripted(E, ref)
+    got, want = _scripted(TE, port), _scripted(E, ref, EosBatchScheduler)
     assert got == want
     assert any(sum(live) == 1 for _, live, _ in got[0])
 

@@ -76,6 +76,20 @@ MLA_FLASH_SHAPES = [(1, 160, 160, 16, 16, 192, 128), (1, 47, 47, 16, 16, 192,
                     (2, 37, 37, 4, 4, 24, 16)]
 FAMILY_ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b", "mamba2-130m",
                 "zamba2-1.2b"]
+# the encdec and vlm families at full width: whisper-base's encoder (8
+# heads of 64, S = T = 1500, non-causal, batch 1 and 4), its
+# cross-attention prefill (a 12-token prompt over the 1500 frames) and
+# decoder prefill; qwen2-vl-72b's prefill (64/8 heads of 128, G = 8)
+ENCDEC_VLM_FLASH_SHAPES = [(1, 1500, 1500, 8, 8, 64, False),
+                           (4, 1500, 1500, 8, 8, 64, False),
+                           (1, 12, 1500, 8, 8, 64, False),
+                           (4, 12, 1500, 8, 8, 64, False),
+                           (1, 160, 160, 8, 8, 64, True),
+                           (1, 160, 160, 64, 8, 128, True)]
+# whisper's self-attention decode and qwen2-vl's (G = 8) over a 160-row
+# cache; whisper's cross-attention decode over 1500 frames is its own test
+ENCDEC_VLM_DECODE_SHAPES = [(4, 160, 8, 8, 64, 8), (4, 160, 64, 8, 128, 8)]
+ENCDEC_VLM_ARCHS = ["whisper-base", "qwen2-vl-72b"]
 
 
 def _t(a):
@@ -209,7 +223,7 @@ def test_gpu_mips_topk_int8_copies_no_store(cuda):
     (4, 160, 16, 8, 192, 8),    # deepseek-v2-lite's 192-wide heads
     (2, 40, 16, 2, 256, 20),    # the widest head dim, 20 splits
     (2, 50, 8, 8, 200, 3),      # D = 200: two 16-byte chunks a lane (f32)
-] + DENSE_DECODE_SHAPES + FAMILY_DECODE_SHAPES)
+] + DENSE_DECODE_SHAPES + FAMILY_DECODE_SHAPES + ENCDEC_VLM_DECODE_SHAPES)
 def test_gpu_decode_attention_kernel_matches_plain(cuda, kv_dtype, B, T, Hq,
                                                    Hkv, D, ns):
     """The one launch ops.decode_attention makes (splits and their merge)
@@ -314,9 +328,32 @@ def test_gpu_decode_attention_lengths_past_the_cache(cuda, kv_dtype, T):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 4])
+def test_gpu_decode_attention_cross_attention_over_1500_frames(cuda, kv_dtype,
+                                                              B):
+    """Whisper's cross-attention decode: one token over the 1500 static
+    encoder keys and values (8 heads of 64, G = 1), ``lengths`` 1499 so
+    the inclusive mask attends every frame; 8 splits of 188 rows fit the
+    kernel's shared memory."""
+    from repro_torch.models.model import DECODE_SPLITS
+    q, k, v, _ = (_t(a).to(cuda) for a in _decode_inputs(B, 1500, 8, 8, 64,
+                                                          B + 1500))
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    lengths = torch.full((B,), 1499, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lengths, DECODE_SPLITS)
+    tol = 2e-4 if kv_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got, decode_attention_plain(q, k, v, lengths),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(got, combine_splits(*decode_partials_plain(
+        q, k, v, lengths, DECODE_SPLITS)), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal",
-                         FLASH_SHAPES + FAMILY_FLASH_SHAPES)
+                         FLASH_SHAPES + FAMILY_FLASH_SHAPES
+                         + ENCDEC_VLM_FLASH_SHAPES)
 def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, B, S, T, Hq,
                                                   Hkv, D, causal):
     rng = np.random.default_rng(S * 3 + T + D)
@@ -696,15 +733,15 @@ def test_gpu_families_bf16_batch_logits_match_cpu(cuda, arch):
     for n, t in s.sched.cache.items():
         assert t.dtype == (torch.float32 if n == "h" else torch.bfloat16)
     s.run()
-    # the CPU's greedy tokens through the scheduler's path: the
-    # scheduler's own picks up to the first EOS, which it drops and then
-    # decodes on from (ROADMAP C4), so its out_ids are not what it fed
+    # the CPU's greedy tokens through the scheduler's path, 19 steps: the
+    # scheduler's own picks up to the first EOS, where its request ends
+    # (ROADMAP C4), so its out_ids alone may hold too few steps to feed
     want = _teacher_forced_logits(cfg, params, tok, prompts, None, 64, 19)
     picks = [[int(x[b]) for x in [want[0].argmax(-1)] + [
         w.argmax(-1) for w in want[1]]] for b in range(len(prompts))]
     for r, p in zip(s.results(), picks):
-        n = p.index(EOS) if EOS in p else len(p)
-        assert r.out_ids[:n] == p[:n] and n >= 4
+        n = p.index(EOS) + 1 if EOS in p else len(p)
+        assert r.out_ids == p[:n] and n >= 4
     ops.reset_launch_counts()
     got = _teacher_forced_logits(cfg, _to(params, cuda), tok, prompts, picks,
                                  64)
@@ -856,3 +893,152 @@ def _to(x, device):
     if isinstance(x, list):
         return [_to(v, device) for v in x]
     return x.to(device)
+
+
+# ---------------------------------------------------------------------------
+# encdec (whisper) and vlm (qwen2-vl, M-RoPE); single-device training
+# ---------------------------------------------------------------------------
+
+
+def _encdec_vlm_inputs(cfg, B, S, seed=0):
+    """tokens (B, S), and whisper's frames (B, Te, d) or qwen2-vl's M-RoPE
+    positions (a text prefix, a 2x2 image block, a text suffix)."""
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(4, cfg.vocab_size, (B, S), generator=g)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                   generator=g)
+    if cfg.rope_kind == "mrope":
+        pos = [[i] * 3 for i in range(3)] + [[3, 3 + r, 3 + c] for r in
+                                             range(2) for c in range(2)]
+        pos += [[5 + i] * 3 for i in range(S - len(pos))]
+        kw["mrope_positions"] = torch.tensor(pos).T[:, None, :].expand(
+            3, B, S).contiguous()
+    return tokens, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ENCDEC_VLM_ARCHS)
+def test_gpu_encdec_vlm_greedy_tokens_match_cpu(cuda, arch):
+    """Each reduced config through the model API on the card and on the
+    CPU: prefill (B4 for whisper's encoder layers, its decoder's self- and
+    cross-attention, qwen2-vl's M-RoPE attention) and two chunks of 4
+    greedy decode steps (B3 for the self-attention and whisper's
+    cross-attention): the same tokens, the prefill logits within 1e-4,
+    and the launches the layers call for."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = reduced(get_config(arch))
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    tokens, kw = _encdec_vlm_inputs(cfg, 2, 12)
+    outs, first = [], []
+    for dev in ("cpu", cuda):
+        ops.reset_launch_counts()
+        p = params if dev == "cpu" else _to(params, dev)
+        lg, cache = M.prefill(cfg, p, tokens.to(dev), 40,
+                              **{k: v.to(dev) for k, v in kw.items()})
+        first.append(lg.cpu())
+        ids = [lg[:, -1].argmax(-1)]
+        for t in range(8):
+            lg, cache = M.decode_step(cfg, p, ids[-1][:, None], cache, 12 + t)
+            ids.append(lg[:, -1].argmax(-1))
+        outs.append(torch.stack(ids, 1).cpu())
+    counts = ops.launch_counts()
+    torch.testing.assert_close(first[1], first[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(outs[0], outs[1])
+    n_b4 = cfg.n_layers * (2 if cfg.is_encoder_decoder else 1) + \
+        cfg.n_encoder_layers
+    n_b3 = 8 * cfg.n_layers * (2 if cfg.is_encoder_decoder else 1)
+    assert (counts["flash_attention"], counts["decode_attention"]) == \
+        (n_b4, n_b3)
+
+
+def _copy(tree, device, dtype=None):
+    """A copy of a params tree on ``device`` (in ``dtype``)."""
+    from repro_torch.models.convert import tree_map
+    return tree_map(lambda t: t.to(device, dtype=dtype, copy=True), tree)
+
+
+def _train_setup(arch="qwen3-1.7b"):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.models import model as M
+    from repro_torch.training import data as D
+    exact_fp32()
+    cfg = reduced(get_config(arch))
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    data = D.SyntheticLMData(cfg.vocab_size, 4, 32, seed=0)
+    return cfg, params, data
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_matches_cpu(cuda):
+    """Two train steps (blockwise attention over 16-row tiles, its
+    hand-written backward, AdamW at lr 1e-3, TF32 off) on the card and
+    on the CPU from the same weights and batches: losses within 1e-5
+    relative, grad norms within 1e-4, the weights within 1e-4 (a tenth of
+    lr: Adam's first steps move a weight by about lr times the sign of
+    its gradient, which rounding decides where the gradient is near 0).
+    B4 is never launched: it has no backward."""
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as T
+    cfg, params, data = _train_setup()
+    run = M.RunCfg(attn_impl="blockwise", q_block=16, kv_block=16)
+    ocfg = O.AdamWCfg(lr=1e-3, warmup_steps=1)
+    res = []
+    for dev in ("cpu", cuda):
+        ops.reset_launch_counts()
+        p = _copy(params, dev)          # the step updates p in place
+        o = O.init(p)
+        step = T.make_train_step(cfg, run, ocfg, accum=2)
+        ms = []
+        for i in range(2):
+            b = {k: torch.from_numpy(v).long().to(dev)
+                 for k, v in data.batch(i).items()}
+            p, o, m = step(p, o, b)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        res.append((ms, [t.cpu() for t in tree_leaves(p)]))
+        assert ops.launch_counts()["flash_attention"] == 0
+    for (l0, g0), (l1, g1) in zip(res[0][0], res[1][0]):
+        np.testing.assert_allclose(l1, l0, rtol=1e-5)
+        np.testing.assert_allclose(g1, g0, rtol=1e-4)
+    for a, b in zip(res[0][1], res[1][1]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """bf16 params and f32 AdamW state on the card: saved (the host copy
+    now, the write on a thread), restored onto the card bit for bit, and
+    the next step from the restored state equals the uninterrupted one
+    bit for bit."""
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as T
+    cfg, params, data = _train_setup()
+    p = _copy(params, cuda, torch.bfloat16)
+    o = O.init(p)
+    step = T.make_train_step(cfg, M.RunCfg(q_block=16, kv_block=16),
+                             O.AdamWCfg(lr=1e-3, warmup_steps=1))
+    batch = [{k: torch.from_numpy(v).long().to(cuda) for k, v in
+              data.batch(i).items()} for i in range(2)]
+    p, o, _ = step(p, o, batch[0])
+    ck = CK.Checkpointer(tmp_path / "ck")
+    ck.save(1, {"params": p, "opt": o})
+    ck.wait()
+    st, meta = ck.restore(device=cuda)
+    assert meta["keys"]["params/embed/w"][1] == "bfloat16"
+    for a, b in zip(tree_leaves({"params": p, "opt": o}), tree_leaves(st)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    st["opt"]["step"] = st["opt"]["step"].cpu()
+    p2, _, _ = step(st["params"], st["opt"], batch[1])
+    p1, _, _ = step(p, o, batch[1])
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        assert torch.equal(a, b)

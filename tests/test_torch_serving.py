@@ -197,7 +197,12 @@ def test_port_sources_import_no_jax_and_no_reference():
             "configs/starcoder2_7b.py", "configs/qwen2_5_32b.py",
             "configs/deepseek_v2_lite_16b.py", "configs/grok_1_314b.py",
             "configs/mamba2_130m.py", "configs/zamba2_1_2b.py",
-            "models/mla.py", "models/moe.py", "models/ssm.py"} <= names
+            "models/mla.py", "models/moe.py", "models/ssm.py",
+            "configs/whisper_base.py", "configs/qwen2_vl_72b.py",
+            "models/blockwise.py", "training/__init__.py",
+            "training/optimizer.py", "training/train.py",
+            "training/compression.py", "training/data.py",
+            "training/checkpoint.py", "launch/train.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -230,6 +235,26 @@ for arch in ("deepseek-v2-lite-16b", "grok-1-314b", "mamba2-130m",
         assert si.engine.cfg.family in ("moe", "ssm", "hybrid"), arch
         rs = si.query_batch(["zebra xylophone", "zebra three"], max_new=4)
         assert all(not r.hit and r.tokens for r in rs), (arch, rs)
+import torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import train as launch_train
+from repro_torch.models import model as M
+from repro_torch.training import checkpoint as CK
+for arch in ("whisper-base", "qwen2-vl-72b"):
+    mc = reduced(get_config(arch))
+    params = M.init_model(mc, torch.Generator().manual_seed(0),
+                          dtype="float32", device="cpu")
+    kw = {"frames": torch.randn(1, mc.encoder_seq, mc.d_model)} \
+        if mc.is_encoder_decoder else \
+        {"mrope_positions": torch.zeros(3, 1, 5, dtype=torch.long)}
+    lg, cache = M.prefill(mc, params, torch.ones(1, 5, dtype=torch.long), 8,
+                          **kw)
+    M.decode_step(mc, params, torch.ones(1, 1, dtype=torch.long), cache, 5)
+ck = str(Path(tempfile.mkdtemp()) / "ck")
+launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                   "--steps", "2", "--batch", "2", "--seq", "16", "--ckpt",
+                   ck, "--ckpt-every", "1", "--compress"])
+assert CK.Checkpointer(ck).latest_step() == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
