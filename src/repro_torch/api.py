@@ -14,7 +14,10 @@ index, a neural embedder and the fallback engine. Underneath, the duck
 types are checked ``Protocol``s (``EmbedderProtocol``,
 ``IndexProtocol``) and components are resolved
 from string registries (``EMBEDDERS``: ``"hash"``, ``"minilm"``;
-``INDEXES``: ``"auto"``, ``"flat"``, ``"ivf"``, ``"none"``).
+``INDEXES``: ``"auto"``, ``"flat"``, ``"ivf"``, ``"sharded"``,
+``"none"``). ``mesh=`` (a ``launch/mesh.Mesh``) lets ``"auto"`` pick the
+sharded tier at paper scale (rows over the mesh's model axis), also on a
+§3.1 write-back rebuild; ``"sharded"`` needs it.
 
 Lifecycle:
 
@@ -50,8 +53,9 @@ from repro_torch.core.embedder import HashEmbedder, MiniLMEncoder
 from repro_torch.core.generator import (GenCfg, QueryLM, SyntheticOracleLM,
                                         chunk_key)
 from repro_torch.core.index import (FlatIndex, IncrementalIndex, IVFIndex,
-                                    auto_index, cached_device_store,
-                                    device_store_for, exact_fp32)
+                                    ShardedIndex, auto_index,
+                                    cached_device_store, device_store_for,
+                                    exact_fp32, sharded_index)
 from repro_torch.core.precompute import (PrecomputeCfg, PrecomputePipeline,
                                          PrecomputeStats)
 from repro_torch.core.runtime import (BatchedRuntime, BatchedRuntimeCfg,
@@ -109,7 +113,7 @@ def index_caps(index) -> IndexCaps:
                      add=callable(getattr(index, "add", None)))
 
 
-_TIER_NAMES = {FlatIndex: "flat", IVFIndex: "ivf",
+_TIER_NAMES = {FlatIndex: "flat", IVFIndex: "ivf", ShardedIndex: "sharded",
                IncrementalIndex: "incremental"}
 
 
@@ -136,9 +140,9 @@ def register_embedder(name: str, factory: Callable[..., Any]):
 
 
 def register_index(name: str, factory: Callable[..., Any]):
-    """Register ``factory(source, device=..., cache_dir=None, **kw) ->
-    IndexProtocol`` where ``source`` is a store, an embeddings view, or a
-    raw ``(n, dim)`` array."""
+    """Register ``factory(source, mesh=None, device=..., cache_dir=None,
+    **kw) -> IndexProtocol`` where ``source`` is a store, an embeddings
+    view, or a raw ``(n, dim)`` array."""
     INDEXES[name] = factory
     return factory
 
@@ -161,10 +165,11 @@ def make_embedder(spec: Union[str, EmbedderProtocol], *, tokenizer=None,
     return emb
 
 
-def make_index(spec: Union[str, IndexProtocol], source=None,
+def make_index(spec: Union[str, IndexProtocol], source=None, *, mesh=None,
                cache_dir=None, **kw) -> Optional[IndexProtocol]:
     """Resolve a tier name (or validate an instance) to an index over
-    ``source``. ``"none"`` returns None (store-only mode)."""
+    ``source`` (on ``mesh`` when one is given). ``"none"`` returns None
+    (store-only mode)."""
     if isinstance(spec, str):
         if spec == "none":
             return None
@@ -173,7 +178,7 @@ def make_index(spec: Union[str, IndexProtocol], source=None,
         except KeyError:
             raise KeyError(f"unknown index tier {spec!r}; registered: "
                            f"{sorted(INDEXES)}") from None
-        idx = factory(source, cache_dir=cache_dir, **kw)
+        idx = factory(source, mesh=mesh, cache_dir=cache_dir, **kw)
     else:
         idx = spec
     if not isinstance(idx, IndexProtocol):
@@ -188,7 +193,20 @@ def _minilm_factory(tokenizer=None, device="cuda", **kw):
     return MiniLMEncoder(tokenizer, device=device, **kw)
 
 
-def _flat_factory(source, cache_dir=None, use_kernel=False, device="cuda"):
+def _embs_of(source):
+    return source.embeddings() if hasattr(source, "embeddings") else source
+
+
+def _sharded_factory(source, mesh=None, cache_dir=None, device="cuda",
+                     **kw):
+    if mesh is None:
+        raise ValueError("the 'sharded' index tier needs mesh=")
+    return sharded_index(np.asarray(_embs_of(source), np.float32), mesh,
+                         device=device, **kw)
+
+
+def _flat_factory(source, mesh=None, cache_dir=None, use_kernel=False,
+                  device="cuda"):
     # stores get the per-store DeviceStore cache, so §3.1 write-back
     # rebuilds of a pinned "flat" tier append deltas instead of
     # re-uploading the matrix (auto_index does the same for "auto")
@@ -200,7 +218,7 @@ def _flat_factory(source, cache_dir=None, use_kernel=False, device="cuda"):
     return FlatIndex(source, use_kernel=use_kernel, on=device)
 
 
-def _ivf_factory(source, cache_dir=None, device="cuda", **kw):
+def _ivf_factory(source, mesh=None, cache_dir=None, device="cuda", **kw):
     # reuses a flat residency the store already has; never creates one
     if not hasattr(source, "embeddings"):
         return IVFIndex(source, on=device, **kw)
@@ -214,6 +232,7 @@ register_embedder("minilm", _minilm_factory)
 register_index("auto", auto_index)
 register_index("flat", _flat_factory)
 register_index("ivf", _ivf_factory)
+register_index("sharded", _sharded_factory)
 
 
 # ---------------------------------------------------------------------------
@@ -381,9 +400,10 @@ class StorInfer:
     directly from ready components (protocol-checked)."""
 
     def __init__(self, store: PrecomputedStore, embedder, index=None, *,
-                 engine=None, cfg: SystemCfg = None,
+                 engine=None, cfg: SystemCfg = None, mesh=None,
                  build_stats: Optional[PrecomputeStats] = None):
         self.store = store
+        self.mesh = mesh
         self.embedder = make_embedder(embedder)   # validates the protocol
         self.index = make_index(index) if index is not None else None
         self.engine = engine
@@ -405,11 +425,12 @@ class StorInfer:
             rebuild = None
             if isinstance(self.cfg.index, str):
                 rebuild = lambda store, mesh: make_index(   # noqa: E731
-                    self.cfg.index, store, device=self.cfg.device,
-                    cache_dir=cache_dir, **self.cfg.index_kw)
+                    self.cfg.index, store, mesh=mesh,
+                    device=self.cfg.device, cache_dir=cache_dir,
+                    **self.cfg.index_kw)
             self._batched = BatchedRuntime(
                 self.index, store, self.embedder, engine,
-                cfg=self.cfg.batched,
+                cfg=self.cfg.batched, mesh=mesh,
                 auto_index_kw={"device": self.cfg.device,
                                "cache_dir": cache_dir}, rebuild=rebuild)
 
@@ -417,7 +438,7 @@ class StorInfer:
     @classmethod
     def build(cls, source, cfg: SystemCfg = None, path=None, *,
               n_pairs: int, lm: QueryLM = None, tokenizer=None,
-              seed: int = 0, resume: bool = True, on_wave=None,
+              seed: int = 0, resume: bool = True, on_wave=None, mesh=None,
               _kill_after_waves: Optional[int] = None) -> "StorInfer":
         """Offline build (resumable) on ``cfg.device``, then open the
         serving side.
@@ -449,37 +470,39 @@ class StorInfer:
         except BaseException:
             store.abort()      # crash semantics: keep the last checkpoint
             raise
-        return cls._from_store(store, cfg, tokenizer=tokenizer,
+        return cls._from_store(store, cfg, tokenizer=tokenizer, mesh=mesh,
                                embedder=pipe.embedder, build_stats=stats)
 
     @classmethod
     def open(cls, path, cfg: SystemCfg = None, *, tokenizer=None,
-             engine=None) -> "StorInfer":
+             engine=None, mesh=None) -> "StorInfer":
         """Open an existing store for serving: memory-mapped shards, the
         index on ``cfg.device`` (with ``cfg.cache_index`` a persisted IVF
-        fit in the store root loads instead of refitting), and the engine
+        fit in the store root loads instead of refitting; on ``mesh``,
+        ``"auto"`` picks the sharded tier at paper scale), and the engine
         (``engine=``, or built from ``cfg.engine`` when set)."""
         store = PrecomputedStore.open_(path)
         return cls._from_store(store, cfg, tokenizer=tokenizer,
-                               engine=engine)
+                               engine=engine, mesh=mesh)
 
     @classmethod
     def _from_store(cls, store, cfg=None, *, tokenizer=None, engine=None,
-                    embedder=None, build_stats=None) -> "StorInfer":
+                    embedder=None, build_stats=None,
+                    mesh=None) -> "StorInfer":
         cfg = cfg or SystemCfg()
         if embedder is None:
             embedder = make_embedder(cfg.embedder, tokenizer=tokenizer,
                                      **{"device": cfg.device,
                                         **cfg.embedder_kw})
         t0 = time.perf_counter()
-        index = make_index(cfg.index, store, device=cfg.device,
+        index = make_index(cfg.index, store, mesh=mesh, device=cfg.device,
                            cache_dir=(str(store.root) if cfg.cache_index
                                       else None), **cfg.index_kw)
         index_s = time.perf_counter() - t0
         if engine is None and cfg.engine is not None:
             tok = tokenizer or _tokenizer_from_store(store)
             engine = _build_engine(cfg.engine, tok, cfg.device)
-        si = cls(store, embedder, index, engine=engine, cfg=cfg,
+        si = cls(store, embedder, index, engine=engine, cfg=cfg, mesh=mesh,
                  build_stats=build_stats)
         si.index_seconds = index_s
         return si

@@ -12,12 +12,18 @@ Port of the JAX package's ``core/index.py`` serving tiers:
                ids + a crc32 fingerprint of the first rows), so a fit
                written by either package opens in the other.
 
-``auto_index`` picks between them from the store size (``select_tier``);
-``cache_dir=`` loads a matching persisted IVF fit instead of re-running
-k-means. ``IncrementalIndex`` is the offline build's dedup index: an
-append-only device buffer, flat below ``flat_max_rows`` and IVF above it. The sharded tier is not ported yet (ROADMAP A8): ``auto_index``
-raises when ``select_tier`` picks it and never serves another tier in its
-place.
+  ShardedIndex — exact MIPS over a mesh (``launch/mesh.py``): rows split
+               over the mesh's ``shard_axis``, each shard scanned locally
+               (the ``mips_topk`` kernel on CUDA for float stores, a plain
+               product for int8 ones), a top-k over the gathered
+               candidates (``distributed/topk.py``).
+
+``auto_index`` picks among them from the store size and the mesh
+(``select_tier``: sharded from ``shard_min_rows`` rows when the mesh's
+shard axis is above 1); ``cache_dir=`` loads a matching persisted IVF fit
+instead of re-running k-means. ``IncrementalIndex`` is the offline
+build's dedup index: an append-only device buffer, flat below
+``flat_max_rows`` and IVF above it.
 
 Residency layout of a ``DeviceStore`` (``layout=``):
 
@@ -46,6 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.store import quantize_rows
+from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.topk import sharded_mips_topk
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_by_value
 
@@ -481,6 +489,57 @@ class IVFIndex:
         return float(np.mean(hits))
 
 
+class ShardedIndex:
+    """Mesh-sharded exact MIPS: rows over ``shard_axis``, distributed top-k
+    (``distributed/topk.py``).
+
+    Quantized views shard the int8 values + per-row scales as they are
+    stored (padded rows: zeros, scale 1); float inputs shard fp32 rows
+    (padded rows: zeros). Padded rows are masked out by global row id on
+    both paths (the reference masks only int8's: its float padding rows
+    come back as hits, ``distributed/topk.py``). Each shard lies on its
+    mesh position's device; ``search`` returns numpy (scores, GLOBAL
+    ids)."""
+
+    def __init__(self, embs, mesh, shard_axis: str = "model"):
+        n_sh = mesh.shape[shard_axis]
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.scales = None
+        if getattr(embs, "is_quantized", False):
+            vals, scales = embs.take_q(np.arange(embs.shape[0]))
+            N, D = vals.shape
+            pad = (-N) % n_sh
+            if pad:       # zero rows score 0; masked out via n_real
+                vals = np.concatenate([vals, np.zeros((pad, D), np.int8)])
+                scales = np.concatenate([scales, np.ones(pad, np.float32)])
+            self.embs = shard(torch.from_numpy(np.ascontiguousarray(vals)),
+                              (shard_axis,), mesh)
+            self.scales = shard(torch.from_numpy(np.ascontiguousarray(
+                scales, np.float32)), (shard_axis,), mesh)
+        else:
+            embs = np.asarray(embs)
+            N, D = embs.shape
+            pad = (-N) % n_sh
+            if pad:
+                embs = np.concatenate([embs, np.zeros((pad, D), embs.dtype)])
+            self.embs = shard(torch.from_numpy(np.ascontiguousarray(
+                embs, np.float32)), (shard_axis,), mesh)
+        self.n_real = N
+
+    def search(self, queries: np.ndarray, k: int):
+        # one host->device copy; the shards take theirs from the device
+        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(
+            self.mesh.devices.flat[0])
+        v, i = sharded_mips_topk(
+            q, self.embs, k, mesh=self.mesh, shard_axis=self.shard_axis,
+            scales=self.scales, n_real=self.n_real)
+        return v.cpu().numpy(), i.cpu().numpy()
+
+    def __len__(self):
+        return self.n_real
+
+
 def select_tier(n_rows: int, mesh_axis_size: int = 1, *,
                 flat_max_rows: int = FLAT_MAX_ROWS,
                 shard_min_rows: int = SHARD_MIN_ROWS) -> str:
@@ -505,17 +564,30 @@ def ivf_params(n_rows: int) -> Tuple[int, int]:
 IVF_CACHE_NAME = "index_ivf.npz"
 
 
-def auto_index(store, mesh=None, *, use_kernel: Optional[bool] = None,
+def sharded_index(embs, mesh, shard_axis: str = "model",
+                  device="cuda") -> ShardedIndex:
+    """``ShardedIndex`` over ``mesh``, refusing a mesh of another device
+    type than ``device`` (the serving side's): the shards never run on a
+    device the caller did not ask for."""
+    if mesh.device_type != torch.device(device).type:
+        raise ValueError(f"the sharded tier runs on its mesh's devices "
+                         f"({mesh.device_type}); this system asked for "
+                         f"{device}")
+    return ShardedIndex(embs, mesh, shard_axis=shard_axis)
+
+
+def auto_index(store, mesh=None, *, shard_axis: str = "model",
+               use_kernel: Optional[bool] = None,
                flat_max_rows: int = FLAT_MAX_ROWS,
                shard_min_rows: int = SHARD_MIN_ROWS, seed: int = 0,
                cache_dir=None, device="cuda"):
     """Build the right index tier for ``store`` (a PrecomputedStore, or any
-    object with ``.embeddings()``, or a raw (N, D) array). ``mesh`` is the
-    number of ranks the rows would shard over (the JAX mesh axis size;
-    None for one device); the sharded tier raises ``NotImplementedError``
-    (ROADMAP A8) instead of being served as another tier.
-    ``use_kernel=False`` asks for the flat tier's gemm layout, which only a
-    CPU device has.
+    object with ``.embeddings()``, or a raw (N, D) array). ``mesh`` (a
+    ``launch/mesh.Mesh``, or None for one device) gives the size of its
+    ``shard_axis``: above 1 and from ``shard_min_rows`` rows the tier is
+    ``ShardedIndex`` over that mesh, whose device type must be
+    ``device``'s. ``use_kernel=False`` asks for the flat tier's gemm
+    layout, which only a CPU device has.
 
     ``cache_dir`` (typically the store root) persists the IVF k-means
     product: a matching cache loads (no k-means); a stale, foreign or
@@ -524,14 +596,18 @@ def auto_index(store, mesh=None, *, use_kernel: Optional[bool] = None,
     embs = store.embeddings() if hasattr(store, "embeddings") \
         else np.asarray(store, np.float32)
     n_rows = int(embs.shape[0])
-    tier = select_tier(n_rows, int(mesh or 1), flat_max_rows=flat_max_rows,
+    axis_size = 1
+    if mesh is not None:
+        try:
+            axis_size = int(mesh.shape[shard_axis])
+        except (KeyError, TypeError):
+            axis_size = 1
+    tier = select_tier(n_rows, axis_size, flat_max_rows=flat_max_rows,
                        shard_min_rows=shard_min_rows)
     is_store = hasattr(store, "embeddings")
     if tier == "sharded":
-        raise NotImplementedError(
-            f"select_tier picked the 'sharded' tier for {n_rows} rows over "
-            f"{mesh} ranks; the port has no sharded tier yet (ROADMAP A8 "
-            "(sharded tier)).")
+        return sharded_index(embs, mesh, shard_axis=shard_axis,
+                             device=device)
     if tier == "ivf":
         n_lists, nprobe = ivf_params(n_rows)
         cache = Path(cache_dir) / IVF_CACHE_NAME if cache_dir else None

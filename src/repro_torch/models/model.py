@@ -13,8 +13,10 @@ Conventions
   like ``"blocks"``), ``"shared"`` (zamba2's one shared block, a single
   layer's dict) and ``"enc_blocks"``/``"enc_norm"`` (whisper's encoder).
   ``models/convert.py`` copies a reference pytree in and back out.
-* ``RunCfg`` carries the implementation choices of a full-sequence pass
-  (the reference's single-device knobs). ``attn_impl``:
+* ``RunCfg`` carries the implementation choices: the reference's
+  single-device knobs of a full-sequence pass and its mesh knobs
+  (``mesh``, ``decode_attn="seq_sharded"``, ``moe_impl="ep"``, the axes).
+  ``attn_impl``:
   ``"kernel"`` runs the ``flash_attention`` kernel on CUDA (its plain
   version on the CPU); it has no backward, so it raises on inputs that
   require grad. ``"naive"`` is that plain math on any device, under
@@ -27,6 +29,14 @@ Conventions
   (``RunCfg(attn_impl="naive")``). MLA's absorbed decode (one latent head
   of 576/512 over the compressed cache) and the MoE expert products are
   plain PyTorch, as they are plain einsums in the reference.
+* Over a mesh (``launch/mesh.py``), ``decode_attn="seq_sharded"`` splits
+  the attention caches' sequence dim over ``seq_axis`` (and their batch
+  rows over ``batch_axes``): ``place_cache`` lays the ``k``/``v``/
+  ``ak``/``av``/``ckv``/``krope`` leaves out per
+  ``distributed/sharding.cache_specs`` as ``Sharded`` values, which
+  ``decode_step`` indexes per layer and writes in place, and the decode
+  attention is ``distributed/decode_attn.py``'s. ``moe_impl="ep"`` runs
+  the MoE layers expert-parallel (``distributed/moe_parallel.py``).
 * Decode caches, leading dim = layer (or shared-block invocation):
     GQA    : {"k": (L,B,M,Hkv,Dh), "v": (L,B,M,Hkv,Dh)}  (dense, vlm, moe)
     MLA    : {"ckv": (L,B,M,r), "krope": (L,B,M,dr)}
@@ -45,10 +55,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.decode_attn import (gqa_decode_seq_sharded,
+                                                 mla_decode_seq_sharded)
+from repro_torch.distributed.moe_parallel import moe_ffn_ep
+from repro_torch.distributed.sharding import Sharded, cache_specs, shard
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import layers as Lyr
@@ -62,13 +76,18 @@ DECODE_SPLITS = 8      # split-KV chunks per decode_attention launch
 
 @dataclasses.dataclass(frozen=True)
 class RunCfg:
-    """Implementation knobs of a full-sequence pass, not architecture."""
+    """Implementation knobs, not architecture."""
     attn_impl: str = "blockwise"      # kernel | naive | blockwise
     schedule: str = "rect"            # rect | tri (causal tile skipping)
     q_block: int = 512
     kv_block: int = 1024
-    moe_impl: str = "scatter"         # scatter | einsum
+    moe_impl: str = "scatter"         # scatter | einsum | ep
     moe_group: int = 2048
+    decode_attn: str = "naive"        # naive (one device) | seq_sharded
+    mesh: Any = None                  # launch/mesh.Mesh of the mesh paths
+    ep_axis: str = "model"
+    seq_axis: str = "model"
+    batch_axes: Tuple[str, ...] = ("data",)
     aux_coef: float = 0.01
 
     def replace(self, **kw):
@@ -284,12 +303,24 @@ def _decode_pos(cache_len: int, c) -> int:
     return min(cache_len, c.shape[1] - 1)
 
 
+def _seq_sharded(run) -> bool:
+    if run.decode_attn == "naive":
+        return False
+    if run.decode_attn != "seq_sharded":
+        raise ValueError(f"decode_attn must be 'naive' or 'seq_sharded', "
+                         f"got {run.decode_attn!r}")
+    if run.mesh is None:
+        raise ValueError("decode_attn='seq_sharded' needs RunCfg(mesh=...)")
+    return True
+
+
 def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None,
-               mrope_positions=None):
+               mrope_positions=None, run=RunCfg()):
     """x (B,1,d); kc/vc (B,M,Hkv,Dh), written in place at ``cache_len``
     (put back afterwards for the rows where ``live`` is False). M-RoPE
     positions default to ``cache_len`` on all three streams, as in the
-    reference. Returns out (B,1,d)."""
+    reference. ``run.decode_attn="seq_sharded"``: kc/vc are ``Sharded``
+    over ``run.seq_axis``. Returns out (B,1,d)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -301,11 +332,17 @@ def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None,
     if mrope_positions is None and cfg.rope_kind == "mrope":
         mrope_positions = positions[None].expand(3, B, 1)
     q, k = _rope_q_k(cfg, p, q, k, positions, mrope_positions)
-    pos = _decode_pos(cache_len, kc)
-    olds = [_write(c, pos, new[:, 0], live) for c, new in ((kc, k), (vc, v))]
-    out = ops.decode_attention(q[:, 0], kc, vc, lengths, DECODE_SPLITS)
-    for c, old in zip((kc, vc), olds):
-        _restore(c, pos, old, live)
+    if _seq_sharded(run):
+        out, _, _ = gqa_decode_seq_sharded(
+            q, k, v, kc, vc, cache_len, mesh=run.mesh, seq_axis=run.seq_axis,
+            batch_axes=run.batch_axes, live=live)
+    else:
+        pos = _decode_pos(cache_len, kc)
+        olds = [_write(c, pos, new[:, 0], live)
+                for c, new in ((kc, k), (vc, v))]
+        out = ops.decode_attention(q[:, 0], kc, vc, lengths, DECODE_SPLITS)
+        for c, old in zip((kc, vc), olds):
+            _restore(c, pos, old, live)
     # the reference's P.V einsum yields the cache dtype (bf16 for the
     # batched cache) before the f32 output projection
     out = out.to(kc.dtype).to(x.dtype)
@@ -327,7 +364,8 @@ def cross_decode(cfg, p, x, xk, xv):
     return Lyr.dense(p["wo"], out.reshape(B, 1, cfg.n_heads * hd))
 
 
-def mla_decode(cfg, p, x, ckv_c, krope_c, cache_len: int, live=None):
+def mla_decode(cfg, p, x, ckv_c, krope_c, cache_len: int, live=None,
+               run=RunCfg()):
     """Absorbed decode over the compressed cache ckv_c (B,M,r) and krope_c
     (B,M,dr), written in place at ``cache_len`` as ``gqa_decode`` writes.
     The products follow the reference's dtypes: a bf16 cache is widened
@@ -342,6 +380,13 @@ def mla_decode(cfg, p, x, ckv_c, krope_c, cache_len: int, live=None):
     qr = Lyr.apply_rope(qr, positions, cfg.rope_theta)
     ckv_new, krope_new = Mla._project_ckv(cfg, p, x, positions)
     q_c = torch.einsum("bshn,rhn->bshr", qn, p["wuk"])
+    if _seq_sharded(run):
+        out_c, _, _ = mla_decode_seq_sharded(
+            q_c, qr, ckv_new, krope_new[:, :, 0, :], ckv_c, krope_c,
+            cache_len, scale, mesh=run.mesh, seq_axis=run.seq_axis,
+            batch_axes=run.batch_axes, live=live)
+        out = torch.einsum("bshr,rhv->bshv", out_c.to(x.dtype), p["wuv"])
+        return Lyr.dense(p["wo"], out.reshape(B, 1, H * cfg.v_head_dim))
     pos = _decode_pos(cache_len, ckv_c)
     olds = [_write(ckv_c, pos, ckv_new[:, 0], live),
             _write(krope_c, pos, krope_new[:, 0, 0], live)]
@@ -372,12 +417,18 @@ def _ffn(cfg, p, x, kind, run=KERNEL, with_aux=False):
     if kind != "moe":
         y = Lyr.mlp(cfg, p["mlp"], h)
         return (y, x.new_zeros((), dtype=torch.float32)) if with_aux else y
+    if run.moe_impl == "ep" and run.mesh is None:
+        raise ValueError("moe_impl='ep' needs RunCfg(mesh=...)")
+    if run.moe_impl == "ep":
+        y, aux = moe_ffn_ep(cfg, p["moe"], h, mesh=run.mesh,
+                            ep_axis=run.ep_axis, batch_axes=run.batch_axes)
+        return (y, aux) if with_aux else y
     if run.moe_impl == "einsum":
         y, aux = Moe.moe_ffn_einsum(cfg, p["moe"], h, run.moe_group)
         return (y, aux) if with_aux else y
     if run.moe_impl != "scatter":
-        raise ValueError(f"moe_impl must be 'scatter' or 'einsum', got "
-                         f"{run.moe_impl!r}")
+        raise ValueError(f"moe_impl must be 'scatter', 'einsum' or 'ep', "
+                         f"got {run.moe_impl!r}")
     return Moe.moe_ffn(cfg, p["moe"], h, with_aux=with_aux)
 
 
@@ -417,9 +468,10 @@ def block_fullseq(cfg, p, x, positions, kind="dense", run=KERNEL, *,
 
 
 def block_decode(cfg, p, x, csl, cache_len: int, lengths, live=None,
-                 kind="dense", mrope_positions=None):
+                 kind="dense", mrope_positions=None, run=RunCfg()):
     """One layer, one token; ``csl`` is this layer's cache slice (its
-    leaves without the layer dim), updated in place."""
+    leaves without the layer dim), updated in place. ``run`` picks the
+    decode attention and the MoE dispatch."""
     if kind == "ssm":
         h, (hs, conv) = Ssm.ssm_decode(
             cfg, p["ssm"], Lyr.rmsnorm(p["ln"], x, cfg.norm_eps), csl["h"],
@@ -434,16 +486,16 @@ def block_decode(cfg, p, x, csl, cache_len: int, lengths, live=None,
     xin = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.use_mla:
         h = mla_decode(cfg, p["attn"], xin, csl["ckv"], csl["krope"],
-                       cache_len, live)
+                       cache_len, live, run)
     else:
         h = gqa_decode(cfg, p["attn"], xin, csl["k"], csl["v"], cache_len,
-                       lengths, live, mrope_positions)
+                       lengths, live, mrope_positions, run)
     x = x + h
     if kind == "dec":
         x = x + cross_decode(cfg, p["xattn"],
                              Lyr.rmsnorm(p["lnx"], x, cfg.norm_eps),
                              csl["xk"], csl["xv"])
-    return x + _ffn(cfg, p, x, kind)
+    return x + _ffn(cfg, p, x, kind, run)
 
 
 # ---------------------------------------------------------------------------
@@ -600,21 +652,25 @@ def lm_loss(cfg, params, batch, run=RunCfg()):
 
 
 def prefill(cfg, params, tokens, max_len: Optional[int] = None, *,
-            frames=None, mrope_positions=None):
+            frames=None, mrope_positions=None, run=KERNEL):
     """tokens (B,S) -> (logits of the last position (B,1,V), cache with
     the self-attention seq dims zero-padded to ``max_len``) in the params'
     dtype (``h`` f32). ``frames`` (B,Te,d): the encoder-decoder's input;
-    ``mrope_positions`` (3,B,S): the vlm's t/h/w positions. Every
-    attention runs B4 on CUDA."""
+    ``mrope_positions`` (3,B,S): the vlm's t/h/w positions. ``run``
+    picks the attention (by default every attention runs B4 on CUDA) and
+    the MoE dispatch; with ``run.decode_attn="seq_sharded"`` the cache
+    comes back laid out for it (``place_cache``)."""
     S = tokens.shape[1]
     max_len = max_len or S
-    x, _, cache = _run_stack(cfg, params, tokens, KERNEL, frames=frames,
+    x, _, cache = _run_stack(cfg, params, tokens, run, frames=frames,
                              mrope_positions=mrope_positions,
                              build_cache=True)
     if cfg.family != "ssm":
         # xk/xv keep the encoder's length; the SSM leaves have no seq dim
         cache = {n: t if n in ("h", "conv", "xk", "xv") else
                  _pad_seq(t, max_len) for n, t in cache.items()}
+    if _seq_sharded(run):
+        place_cache(cache, run)
     return lm_logits(cfg, params, x[:, -1:]), cache
 
 
@@ -643,20 +699,46 @@ def cache_struct(cfg, batch, max_len, dtype=None):
     return out
 
 
-def init_cache(cfg, batch, max_len, dtype=None, device="cuda"):
-    return {n: torch.zeros(s, dtype=d, device=device)
-            for n, (s, d) in cache_struct(cfg, batch, max_len, dtype).items()}
+# the cache leaves the seq-sharded decode attends (CACHE_RULES' SEQ rows)
+SEQ_LEAVES = ("k", "v", "ak", "av", "ckv", "krope")
+
+
+def place_cache(cache, run):
+    """Lay the attention leaves of ``cache`` out for
+    ``run.decode_attn="seq_sharded"``, in place in the dict: each becomes
+    a ``Sharded`` per ``cache_specs`` on ``run.mesh`` (sequence over the
+    model axis, batch rows over the batch axes where they divide). The
+    other leaves (SSM state, the cross-attention's ``xk``/``xv``) stay
+    whole where they are. Returns ``cache``."""
+    for n, t in cache.items():
+        if n in SEQ_LEAVES and not isinstance(t, Sharded):
+            cache[n] = shard(t, cache_specs({n: t}, run.mesh)[n], run.mesh)
+    return cache
+
+
+def init_cache(cfg, batch, max_len, dtype=None, device="cuda", run=None):
+    """Zeros per ``cache_struct`` on ``device``; laid out by
+    ``place_cache`` when ``run`` asks for the seq-sharded decode."""
+    cache = {n: torch.zeros(s, dtype=d, device=device)
+             for n, (s, d) in cache_struct(cfg, batch, max_len,
+                                           dtype).items()}
+    return place_cache(cache, run) if run is not None and \
+        _seq_sharded(run) else cache
 
 
 def decode_step(cfg, params, token, cache, cache_len: int, live=None,
-                mrope_positions=None):
+                mrope_positions=None, *, run=RunCfg()):
     """token (B,1) int; cache per ``cache_struct`` (updated in place);
     cache_len: the position this token is written at (it attends
     [0, cache_len]). ``live`` (B,) bool keeps the cache rows of dead
     slots as they were. ``mrope_positions`` (3,B,1): the vlm's position
-    of this token (default ``cache_len`` on every stream). Returns
-    (logits (B,1,V), cache)."""
+    of this token (default ``cache_len`` on every stream). ``run`` picks
+    the decode attention and the MoE dispatch; with
+    ``decode_attn="seq_sharded"`` a cache not yet laid out for it is laid
+    out in place (``place_cache``). Returns (logits (B,1,V), cache)."""
     B = token.shape[0]
+    if _seq_sharded(run):
+        place_cache(cache, run)
     x = embed_tokens(cfg, params, token)
     lengths = torch.full((B,), cache_len, dtype=torch.int32,
                          device=token.device)
@@ -667,11 +749,11 @@ def decode_step(cfg, params, token, cache, cache_len: int, live=None,
                 x = block_decode(cfg, params["shared"], x,
                                  {"k": cache["ak"][inv],
                                   "v": cache["av"][inv]},
-                                 cache_len, lengths, live)
+                                 cache_len, lengths, live, run=run)
                 inv += 1
             x = block_decode(cfg, lp, x, {"h": cache["h"][i],
                                           "conv": cache["conv"][i]},
-                             cache_len, lengths, live, kind="ssm")
+                             cache_len, lengths, live, kind="ssm", run=run)
         return lm_logits(cfg, params, x), cache
     if cfg.is_encoder_decoder:
         # the position row at cache_len, clamped past the end as the
@@ -682,5 +764,5 @@ def decode_step(cfg, params, token, cache, cache_len: int, live=None,
     for i, (kind, lp) in enumerate(_layers(cfg, params)):
         x = block_decode(cfg, lp, x, {n: t[i] for n, t in cache.items()},
                          cache_len, lengths, live, kind=kind,
-                         mrope_positions=mrope_positions)
+                         mrope_positions=mrope_positions, run=run)
     return lm_logits(cfg, params, x), cache

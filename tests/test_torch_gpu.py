@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, and the engine and MiniLM encoder on the card against the CPU. Every test here is marked ``gpu`` and skips without a CUDA device
+card, the engine and MiniLM encoder on the card against the CPU, and the
+mesh paths (sharded tier, seq-sharded decode, expert parallel) on four
+shards of the card against one device. Every test here is marked ``gpu`` and skips without a CUDA device
 (a CUDA kernel has no CPU mode); this file imports nothing of JAX, so it
 runs where only the port is installed:
 
@@ -1042,3 +1044,139 @@ def test_gpu_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     p1, _, _ = step(p, o, batch[1])
     for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The mesh paths on four shards of one card (no bytes cross cards)
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(cuda, data=1, model=4):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((data, model), ("data", "model"),
+                     devices=[cuda] * (data * model))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emb_dtype,n", [("float16", 4096),
+                                         ("float32", 4099), ("int8", 4099)])
+def test_gpu_sharded_index_matches_plain_on_four_shards(cuda, tmp_path,
+                                                        emb_dtype, n):
+    """``ShardedIndex`` over four shards of the card: the float shards
+    scan on B1 (one launch a shard), the int8 shards with a plain product
+    on the card (no kernel), against the plain scan of every row on the
+    card; an odd N pads and masks the last shard."""
+    from repro_torch.core.index import ShardedIndex, exact_fp32
+    from repro_torch.core.store import PrecomputedStore
+    exact_fp32()
+    x = _unit_rows(n, 384)
+    st = PrecomputedStore(tmp_path / "s", dim=384, emb_dtype=emb_dtype,
+                          shard_rows=1024)
+    st.add_batch(x, [f"q{i}" for i in range(n)], [f"r{i}" for i in range(n)])
+    st.flush()
+    idx = ShardedIndex(st.embeddings(), _card_mesh(cuda))
+    assert all(s.is_cuda for s in idx.embs.shards.flat)
+    q = _unit_rows(16, 384, seed=3)
+    ops.reset_launch_counts()
+    v, i = idx.search(q, 5)
+    counts = ops.launch_counts()
+    assert counts["mips_topk"] == (0 if emb_dtype == "int8" else 4)
+    assert counts["mips_topk_int8"] == 0
+    qt = _t(q).to(cuda)
+    if emb_dtype == "int8":
+        vals, sc = st.embeddings().take_q(np.arange(n))
+        s = (qt @ _t(vals).to(cuda).float().T) * _t(sc).to(cuda)[None, :]
+    else:
+        s = qt @ _t(np.asarray(st.embeddings(), np.float32)).to(cuda).T
+    pv, pi = ref.topk_by_value(s, 5)
+    np.testing.assert_array_equal(i, pi.cpu().numpy())
+    np.testing.assert_allclose(v, pv.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    st.close()
+
+
+def _reduced(arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch)), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b"])
+def test_gpu_seq_sharded_decode_matches_one_device(cuda, arch):
+    """One attention layer's decode (GQA: B3 on one device; MLA: the plain
+    absorbed decode) against ``RunCfg(decode_attn="seq_sharded")`` over
+    four shards of the card: a 160-row f32 cache, batch 4, the write at
+    100 (shard 2) and at 200 (past the end: the last slot, in shard 3),
+    a dead slot kept."""
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.models import model as M
+    exact_fp32()
+    cfg = _reduced(arch)
+    p = M.init_model(cfg, torch.Generator().manual_seed(0),
+                     dtype=torch.float32, device="cpu")["blocks"][0]["attn"]
+    p = _to(p, cuda)
+    run = M.RunCfg(decode_attn="seq_sharded", mesh=_card_mesh(cuda))
+    names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+    c = M.cache_struct(cfg, 4, 160, torch.float32)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for clen in (100, 200):
+        x = torch.randn((4, 1, cfg.d_model), generator=g, device=cuda)
+        one = [torch.randn(c[n][0][1:], generator=g, device=cuda)
+               for n in names]
+        sh = [shard(t, (None, "model"), run.mesh) for t in one]
+        live = torch.tensor([True, True, False, True], device=cuda)
+        lengths = torch.full((4,), min(clen, 159), dtype=torch.int32,
+                             device=cuda)
+        ops.reset_launch_counts()
+        if cfg.use_mla:
+            want = M.mla_decode(cfg, p, x, *one, clen, live)
+            got = M.mla_decode(cfg, p, x, *sh, clen, live, run=run)
+            tol = 1e-4
+        else:
+            want = M.gqa_decode(cfg, p, x, *one, clen, lengths, live)
+            assert ops.launch_counts()["decode_attention"] == 1
+            got = M.gqa_decode(cfg, p, x, *sh, clen, lengths, live, run=run)
+            assert ops.launch_counts()["decode_attention"] == 1
+            tol = 2e-4          # B3's f32 contract
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        for a, b in zip(sh, one):
+            assert torch.equal(a.full(), b)
+
+
+@pytest.mark.gpu
+def test_gpu_expert_parallel_moe_matches_scatter(cuda):
+    """``moe_ffn_ep`` over four shards of the card against the one-device
+    scatter ``moe_ffn``, with no drops (capacity factor 64) and with the
+    full config's capacity (drops per shard: compared on the shards' own
+    token sets)."""
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.distributed.moe_parallel import moe_ffn_ep
+    from repro_torch.models import moe as Moe
+    exact_fp32()
+    cfg = _reduced("deepseek-v2-lite-16b", moe_capacity_factor=64.0)
+    p = _to(Moe.moe_init(torch.Generator().manual_seed(0), cfg,
+                         torch.float32, "cpu"), cuda)
+    x = torch.randn((4, 48, cfg.d_model), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda)
+    y, aux = moe_ffn_ep(cfg, p, x, mesh=_card_mesh(cuda))
+    want, want_aux = Moe.moe_ffn(cfg, p, x, with_aux=True)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux, want_aux, rtol=1e-4, atol=0)
+    # with drops: each shard (a quarter of the sequence) is its own
+    # scatter call with its own capacity
+    cfg = _reduced("deepseek-v2-lite-16b", moe_capacity_factor=1.0)
+    y = moe_ffn_ep(cfg, p, x, mesh=_card_mesh(cuda))[0]
+    want = torch.cat([Moe.moe_ffn(cfg, p, x[:, j * 12:(j + 1) * 12])
+                      for j in range(4)], dim=1)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_mixing_devices_raises(cuda):
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    with pytest.raises(ValueError, match="one type"):
+        make_mesh((2,), ("model",), devices=[cuda, "cpu"])
+    with pytest.raises(ValueError, match="distinct cuda"):
+        make_local_mesh(model=torch.cuda.device_count() + 1)

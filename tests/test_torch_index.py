@@ -4,8 +4,8 @@ the port's (fp32, fp16, int8 stores; "kernel" and "gemm" layouts), the
 upload-once ``DeviceStore`` with delta appends, the IVF tier (a fit saved
 by either package loads in the other and returns identical ids; the
 port's own fit held to ``recall_vs_flat``), ``auto_index`` tier selection
-with the persisted fit, the hash embedder, and the shared on-disk store
-format."""
+with the persisted fit and the sharded tier on a mesh of CPU shards, the
+hash embedder, and the shared on-disk store format."""
 import numpy as np
 import pytest
 
@@ -17,10 +17,11 @@ from repro.core.index import auto_index as jauto_index
 from repro.core.store import PrecomputedStore as JStore
 from repro_torch.core.embedder import HashEmbedder
 from repro_torch.core.index import (IVF_CACHE_NAME, DeviceStore, FlatIndex,
-                                    IVFIndex, auto_index,
+                                    IVFIndex, ShardedIndex, auto_index,
                                     cached_device_store, device_store_for,
                                     ivf_params, kmeans, select_tier)
 from repro_torch.core.store import PrecomputedStore
+from repro_torch.launch.mesh import make_mesh
 
 
 def _rows(n, d=48, seed=0):
@@ -110,8 +111,9 @@ def test_device_store_delta_append_after_writeback_rebuild(tmp_path):
 
 
 def test_auto_index_raises_above_the_flat_tier(tmp_path):
-    """Above the flat tier ``auto_index`` builds the IVF tier; the sharded
-    tier (ROADMAP A8) still raises instead of serving another tier."""
+    """Above the flat tier ``auto_index`` builds the IVF tier; on a mesh
+    whose model axis is above 1 it builds the sharded tier from
+    ``shard_min_rows``, which answers as the flat search does."""
     x = _rows(300)
     st = _write(PrecomputedStore, tmp_path / "s", x, "float16")
     assert select_tier(300, flat_max_rows=100) == "ivf"
@@ -119,10 +121,17 @@ def test_auto_index_raises_above_the_flat_tier(tmp_path):
     assert isinstance(idx, IVFIndex) and len(idx) == 300
     assert (idx.n_lists, idx.nprobe) == ivf_params(300)
     assert cached_device_store(st) is None     # no flat copy was pinned
-    with pytest.raises(NotImplementedError, match="A8"):
-        auto_index(st, 4, flat_max_rows=100, shard_min_rows=200,
-                   device="cpu")
-    assert isinstance(auto_index(st, device="cpu"), FlatIndex)
+    mesh = make_mesh((4,), ("model",), devices=["cpu"] * 4)
+    sh = auto_index(st, mesh, flat_max_rows=100, shard_min_rows=200,
+                    device="cpu")
+    assert isinstance(sh, ShardedIndex) and len(sh) == 300
+    q = _queries(x)
+    flat = auto_index(st, device="cpu")
+    assert isinstance(flat, FlatIndex)
+    v, i = sh.search(q, 4)
+    fv, fi = flat.search(q, 4)
+    np.testing.assert_array_equal(i, fi)
+    np.testing.assert_allclose(v, fv, rtol=1e-5, atol=1e-6)
     st.close()
 
 
