@@ -159,6 +159,7 @@ VLM_LAYERS = 16
 LM_TRAIN_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_SEQ = 4, 256
 LM_REPEAT, LM_TIMED = 6, 5
+TRAIN_CKPT = ROOT / "build" / "chip_smoke" / "train_ckpt"   # 14 -> 16
 # accum 2 against accum 1 after one step from a fresh state: the bf16
 # forward and backward of two half batches against one whole batch round
 # differently, so the loss (a mean over the same 1,024 labels) agrees to
@@ -2138,7 +2139,7 @@ def phase_train_lm(torch, np, args, card, corpus, dev):
         return {k: torch.from_numpy(v).long().to(dev)
                 for k, v in data.batch(i).items()}
 
-    run = M.RunCfg(attn_impl="blockwise")
+    run = M.RunCfg(attn_impl="blockwise", remat=False)
     ocfg = O.AdamWCfg()
     tol_master = 2 * O.lr_at(ocfg, 1) + 1e-6
     print(f"{label}: {cfg.name}: {describe(cfg)}; {n_par / 1e9:.3f} B "
@@ -2198,7 +2199,8 @@ def phase_train_lm(torch, np, args, card, corpus, dev):
           f"last loss {float(m['loss']):.4f} on {card}")
 
     # a checkpoint: saved, then the uninterrupted step; restored, stepped
-    work = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    # (phase 16 restores it onto a mesh, then removes it)
+    work = TRAIN_CKPT
     shutil.rmtree(work, ignore_errors=True)
     ck = CK.Checkpointer(work)
     nxt = batch(LM_TIMED + 1)
@@ -2232,7 +2234,6 @@ def phase_train_lm(torch, np, args, card, corpus, dev):
           f"uninterrupted one bit for bit (loss {float(m['loss']):.6f} vs "
           f"{want_loss:.6f})")
     del want
-    shutil.rmtree(work, ignore_errors=True)
 
     # one compressed step
     def compress(grads, opt_state):
@@ -2557,6 +2558,230 @@ def phase_mesh(torch, np, args, card, corpus, engine, dev, slices):
     return counts_all
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training on a mesh of four shards of the one card
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN = (2, 2)          # (data, model): 16 q and 8 kv heads split in 2
+MESH_TRAIN_B = (1, 4)        # (d): the mesh the checkpoint moves to
+MESH_TRAIN_STEPS = 3
+# (b) the mesh step against one device's from the same bf16 state: every
+# row-parallel product (wo, w2) rounds its two partial sums to bf16 before
+# the psum, one more rounding of 2^-8 relative on each, the same order as
+# the two half-batches' bf16 rounding of phase 14's accum 2 against 1
+TOL_MESH_TRAIN_LOSS, TOL_MESH_TRAIN_NORM = TOL_ACCUM_LOSS, TOL_ACCUM_NORM
+
+
+def _leaves_equal(torch, a, b):
+    """Whether two state trees (``Sharded`` leaves gathered one at a time
+    on the card) hold the same values bit for bit."""
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.models.convert import tree_leaves
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = gather(x), gather(y)
+        if x.dtype != y.dtype or not torch.equal(x, y.to(x.device)):
+            return False
+    return True
+
+
+def step_profile(torch, step):
+    """(wall s, device busy s or None) of one ``step()`` under
+    torch.profiler (CPU and CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    busy = sum(_dev_us(e) for e in ev if _dev_us(e) > 0 and
+               e.self_cpu_time_total == 0) / 1e6 or None
+    return wall, busy, out
+
+
+def phase_mesh_train(torch, np, args, card, corpus, dev):
+    """16: phase 14's qwen3-1.7b training state (bf16 params, f32 AdamW)
+    on a (data 2, model 2) mesh whose four shards share the card, with
+    ``make_runcfg``'s layout (q and kv heads and the MLP split over model,
+    FSDP over data, vocab-split logits, remat): (a) phase 14's last
+    checkpoint restored onto the mesh, every leaf equal to one device's
+    restore of it (phase 14's state) bit for bit; (b) one mesh step and
+    one one-device step from that state on the same batch, loss and grad
+    norm within the stated tolerance; (c) three more mesh steps on that
+    batch, the loss falling: s per step, tokens/s, peak memory, the
+    device idle share of one profiled step; (d) the mesh's checkpoint
+    restored onto (data 1, model 4) bit for bit and stepped there; (e)
+    neither B3 nor B4 launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as T
+
+    label = "mesh train"
+    kb, tok = corpus[0], corpus[2]
+    exact_fp32()
+    cfg = get_config(LM_TRAIN_ARCH)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    meshes = [make_mesh(s, ("data", "model"), [dev] * (s[0] * s[1]))
+              for s in (MESH_TRAIN, MESH_TRAIN_B)]
+    shape = ShapeConfig("train", LM_SEQ, LM_BATCH, "train")
+    runs = [SP.train_runcfg(LM_TRAIN_ARCH, cfg, shape, m) for m in meshes]
+    run = runs[0]
+    like = M.init_model(cfg, torch.Generator(), dtype=torch.bfloat16,
+                        device="meta")
+    shards = [Sh.param_shardings(like, m, cfg) for m in meshes]
+    ocfg = O.AdamWCfg()
+    data = D.TextFileData([d.text() for d in kb.docs], tok, LM_BATCH, LM_SEQ,
+                          seed=args.seed)
+    b = {k: torch.from_numpy(v).long().to(dev)
+         for k, v in data.batch(LM_TIMED + 3).items()}
+    print(f"reduced: phase 16's (data {MESH_TRAIN[0]}, model "
+          f"{MESH_TRAIN[1]}) and (data {MESH_TRAIN_B[0]}, model "
+          f"{MESH_TRAIN_B[1]}) meshes put all four shards on one card: no "
+          "byte crosses cards, every collective is a copy on the card")
+    print(f"{label}: {cfg.name} at full width and depth, batch {LM_BATCH} x "
+          f"{LM_SEQ} on a {dict(meshes[0].shape)} mesh: heads_sharded "
+          f"{run.heads_sharded} ({cfg.n_heads} q and {cfg.n_kv_heads} kv "
+          f"heads), repeat_kv {run.repeat_kv}, seq_parallel "
+          f"{run.seq_parallel}, remat {run.remat}, {run.attn_impl} "
+          f"attention (q_block {run.q_block}, kv_block {run.kv_block})")
+
+    # (a) phase 14's checkpoint onto the mesh against one device's restore
+    ck = CK.Checkpointer(TRAIN_CKPT)
+    t0 = time.perf_counter()
+    one, meta = ck.restore(device=dev)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    one["opt"]["step"] = one["opt"]["step"].cpu()
+    t0 = time.perf_counter()
+    st, _ = ck.restore(shardings={"params": shards[0],
+                                  "opt": O.state_shardings(shards[0])})
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    same_a = _leaves_equal(torch, st, one)
+    print(f"{label}: (a) phase 14's checkpoint of step {meta['step']} "
+          f"restored onto the mesh in {t_mesh:.2f} s (onto one device "
+          f"{t_one:.2f} s): every leaf {'equals' if same_a else 'DIFFERS FROM'}"
+          " one device's bit for bit")
+
+    # (b) one step each from that state on the same batch
+    def timed_step(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (one["params"], one["opt"], m1), s_one = timed_step(
+        lambda: T.make_train_step(cfg, run.replace(mesh=None), ocfg)(
+            one["params"], one["opt"], b))
+    del one
+    release(torch)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    step = T.make_train_step(cfg, run, ocfg)
+    p, o = st["params"], st["opt"]
+    del st
+    (p, o, m), s_first = timed_step(lambda: step(p, o, b))
+    d_loss = abs(float(m["loss"]) - float(m1["loss"])) / float(m1["loss"])
+    d_norm = abs(float(m["grad_norm"]) - float(m1["grad_norm"])) / \
+        float(m1["grad_norm"])
+    print(f"{label}: (b) one step from that state, mesh against one device "
+          f"(remat on both): loss {float(m['loss']):.6f} vs "
+          f"{float(m1['loss']):.6f} ({d_loss:.2e} relative, tol "
+          f"{TOL_MESH_TRAIN_LOSS}), grad norm {float(m['grad_norm']):.5f} vs "
+          f"{float(m1['grad_norm']):.5f} ({d_norm:.2e}, tol "
+          f"{TOL_MESH_TRAIN_NORM}); {s_first:.3f} s vs {s_one:.3f} s (the "
+          "first step of each run)")
+
+    # (c) three more mesh steps on that batch, one of them profiled
+    peak_ab = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [float(m["loss"])], []
+    for _ in range(MESH_TRAIN_STEPS - 1):
+        (p, o, m), t = timed_step(lambda: step(p, o, b))
+        losses.append(float(m["loss"]))
+        times.append(t)
+    wall, busy, (p, o, m) = step_profile(torch, lambda: step(p, o, b))
+    losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    s_step = float(np.median(times))
+    idle = "not measured (the trace held no device activity)" \
+        if busy is None else f"{1 - busy / wall:.3f}"
+    print(f"{label}: (c) loss over {MESH_TRAIN_STEPS + 1} mesh steps on one "
+          "batch: " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"{label}: (c) {s_step:.4f} s per step (steps {times}), "
+          f"{LM_BATCH * LM_SEQ / s_step:.0f} tokens/s; peak device memory "
+          f"{gib(peak):.3f} GiB; one profiled step {wall:.3f} s wall, device "
+          f"busy {busy if busy is None else round(busy, 4)} s, idle share "
+          f"{idle}; on {card}")
+
+    # (d) saved from the mesh, restored onto (1, 4), stepped there
+    work = ROOT / "build" / "chip_smoke" / "mesh_train_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    ck = CK.Checkpointer(work)
+    t0 = time.perf_counter()
+    ck.save(int(o["step"]), {"params": p, "opt": o}, blocking=True)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st, meta = ck.restore(shardings={"params": shards[1],
+                                     "opt": O.state_shardings(shards[1])})
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    same_d = _leaves_equal(torch, st, {"params": p, "opt": o})
+    del p, o
+    release(torch)
+    _, _, md = T.make_train_step(cfg, runs[1], ocfg)(st["params"],
+                                                     st["opt"], b)
+    shutil.rmtree(work, ignore_errors=True)
+    counts = ops.launch_counts()
+    peak_d = torch.cuda.max_memory_allocated()
+    print(f"{label}: (d) saved from the mesh (blocking) in {t_save:.2f} s, "
+          f"restored onto {dict(meshes[1].shape)} in {t_b:.2f} s: every "
+          f"leaf {'equals' if same_d else 'DIFFERS FROM'} the mesh's bit "
+          f"for bit; a step there: loss {float(md['loss']):.6f}")
+    print(f"{label}: (e) launches {counts}: decode_attention 0 and "
+          "flash_attention 0, as they must be: training decodes nothing and "
+          "B4 has no backward, so the mesh runs the blockwise attention of "
+          "models/blockwise.py")
+    print(f"{label}: readings " + json.dumps({
+        "s_per_step": round(s_step, 4),
+        "tokens_per_s": round(LM_BATCH * LM_SEQ / s_step, 1),
+        "peak_gib": round(gib(peak), 3),
+        "idle_share": None if busy is None else round(1 - busy / wall, 3),
+        "profiled_wall_s": round(wall, 4)}))
+    check(same_a, f"{label}: the mesh's restore differs from one device's")
+    check(d_loss <= TOL_MESH_TRAIN_LOSS and d_norm <= TOL_MESH_TRAIN_NORM,
+          f"{label}: the mesh step differs from one device's (loss "
+          f"{d_loss:.2e}, grad norm {d_norm:.2e})")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: the loss on a repeated batch did not fall ({losses})")
+    check(same_d, f"{label}: the (1, 4) restore differs from the mesh's "
+          "state")
+    check(np.isfinite(float(md["loss"])), f"{label}: the (1, 4) step is not "
+          "finite")
+    check(counts["flash_attention"] == 0 and
+          counts["decode_attention"] == 0, f"{label}: an attention kernel "
+          f"launched ({counts})")
+    del st
+    release(torch)
+    print(f"{label}: peak device memory with two states on the card: "
+          f"{gib(peak_ab):.3f} GiB in (a)-(b), {gib(peak_d):.3f} GiB in "
+          "(c)-(d)")
+    return {"mesh train": counts}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2659,6 +2884,11 @@ def main():
     t14 = time.perf_counter()
     counts.update(phase_train_lm(torch, np, args, card, corpus, dev))
     print(f"train: phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # -- phase 16: training on a mesh of four shards (phase 14's state) ------
+    t16 = time.perf_counter()
+    counts.update(phase_mesh_train(torch, np, args, card, corpus, dev))
+    print(f"mesh train: phase 16 took {time.perf_counter() - t16:.1f} s")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -37,15 +37,34 @@ def moe_ffn_ep(cfg, p, x, *, mesh, ep_axis="model", batch_axes=("data",)):
     Requires cfg.n_experts % ep == 0 and S % ep == 0: tokens are
     sequence-split over the EP axis (each EP peer routes a disjoint token
     shard), so the all-to-all carries real traffic."""
-    E, K = cfg.n_experts, cfg.experts_per_tok
-    ep = mesh.shape[ep_axis]
     B, S, d = x.shape
+    E, ep = cfg.n_experts, mesh.shape[ep_axis]
     if E % ep or S % ep:
         raise ValueError(f"expert parallel over {ep} shards needs E ({E}) "
                          f"and S ({S}) divisible by it")
+    bspec = _batch_spec(mesh, batch_axes, B)
+    xs = shard(x, (bspec, ep_axis), mesh)
+    y, aux = moe_ffn_ep_sharded(cfg, p, xs, mesh=mesh, ep_axis=ep_axis,
+                                batch_axes=batch_axes)
+    return y.with_spec((bspec, ep_axis)).full(x.device), aux.to(x.device)
+
+
+def moe_ffn_ep_sharded(cfg, p, xs, *, mesh, ep_axis="model",
+                       batch_axes=("data",)):
+    """``moe_ffn_ep`` on tokens already laid out: ``xs`` a ``Sharded`` whose
+    shard at each position is its (B_local, S_local, d) block (batch rows
+    over the batch axes where they split, the sequence over ``ep_axis``).
+    Returns (y, a ``Sharded`` of the same layout, the aux loss on the first
+    position's device). ``p`` leaves may be ``Sharded`` (the experts split
+    over ``ep_axis`` on their leading dim, the rest replicated)."""
+    E, K = cfg.n_experts, cfg.experts_per_tok
+    ep = mesh.shape[ep_axis]
+    d = xs.shards.flat[0].shape[-1]
+    if E % ep:
+        raise ValueError(f"expert parallel over {ep} shards needs E ({E}) "
+                         "divisible by it")
     E_local = E // ep
     b_axes = tuple(a for a in batch_axes if a in mesh.axis_names)
-    bspec = _batch_spec(mesh, batch_axes, B)
     experts = {n: w if isinstance(w, Sharded) else shard(w, (ep_axis,), mesh)
                for n, w in p["experts"].items()}
 
@@ -63,7 +82,6 @@ def moe_ffn_ep(cfg, p, x, *, mesh, ep_axis="model", batch_axes=("data",)):
         return buf[:E * C].reshape(ep, E_local * C, d), w, slot, valid, \
             me, fe
 
-    xs = shard(x, (bspec, ep_axis), mesh)
     buf, w, slot, valid, me, fe = smap(dispatch, mesh, xs, p["router"])
     # send chunk i to peer i (the tokens for ITS experts)
     buf = all_to_all(buf, ep_axis)
@@ -98,4 +116,4 @@ def moe_ffn_ep(cfg, p, x, *, mesh, ep_axis="model", batch_axes=("data",)):
     axes = b_axes + (ep_axis,)
     me, fe = pmean(me, axes), pmean(fe, axes)
     aux = E * torch.sum(me.shards.flat[0] * fe.shards.flat[0])
-    return y.with_spec((bspec, ep_axis)).full(x.device), aux.to(x.device)
+    return y, aux

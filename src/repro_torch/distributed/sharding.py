@@ -32,6 +32,7 @@ function therefore runs in phases: local work, a collective, local work.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Optional
 
@@ -221,6 +222,68 @@ def batch_specs(batch_struct, mesh):
 
 
 # ---------------------------------------------------------------------------
+# Placement (the reference's NamedSharding trees and device_put)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``'s counterpart): how
+    ``place`` lays a global tensor out."""
+    mesh: object
+    spec: tuple
+
+
+def _named(specs, mesh):
+    return _map_with_path(lambda _, s: NamedSharding(mesh, s), specs)
+
+
+def param_shardings(params, mesh, cfg=None):
+    return _named(param_specs(params, mesh, cfg), mesh)
+
+
+def cache_shardings(cache_struct, mesh):
+    return _named(cache_specs(cache_struct, mesh), mesh)
+
+
+def batch_shardings(batch_struct, mesh):
+    return _named(batch_specs(batch_struct, mesh), mesh)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def place(tree, shardings):
+    """Each tensor of ``tree`` laid out per the matching ``NamedSharding``
+    of ``shardings`` (a tree of the same shape): a ``Sharded`` of copies
+    on the mesh's devices (``jax.device_put``). A leaf whose sharding is
+    None stays as it is."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [place(v, s) for v, s in zip(tree, shardings)]
+    if shardings is None:
+        return tree
+    mesh = shardings.mesh
+    # whole onto the mesh's first device, then split there: a block of a
+    # host tensor is strided, and a strided host copy is slow
+    tree = tree.full() if isinstance(tree, Sharded) else \
+        tree.to(mesh.devices.flat[0])
+    return shard(tree, shardings.spec, mesh)
+
+
+def gather(tree):
+    """The global tensors of a tree of ``Sharded`` leaves (``Sharded.full``,
+    on each mesh's first device); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: gather(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [gather(v) for v in tree]
+    return tree.full() if isinstance(tree, Sharded) else tree
+
+
+# ---------------------------------------------------------------------------
 # Shards on one controller
 # ---------------------------------------------------------------------------
 
@@ -312,6 +375,35 @@ class Sharded:
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
         return build(0, ())
+
+
+def parts(x) -> list:
+    """The local tensors of a value: a ``Sharded``'s shards (row-major over
+    the mesh), else ``[x]``."""
+    return list(x.shards.flat) if isinstance(x, Sharded) else [x]
+
+
+def blocks(x) -> list:
+    """One replica of each block of a ``Sharded`` (the shards at index 0
+    of every mesh axis its spec does not name), else ``[x]``: what a sum
+    over the global tensor reads once."""
+    if not isinstance(x, Sharded):
+        return [x]
+    used = {a for e in x.spec for a in _axes(e)}
+    return [x.shards[pos] for pos in np.ndindex(x.shards.shape)
+            if not any(_coord(x.mesh, pos)[a] for a in x.mesh.axis_names
+                       if a not in used)]
+
+
+def elementwise(fn, *xs):
+    """``fn`` over each position's shards of ``Sharded`` values of one
+    layout (the first's spec kept), or over plain tensors."""
+    if not isinstance(xs[0], Sharded):
+        return fn(*xs)
+    out = np.empty(xs[0].shards.shape, dtype=object)
+    for pos in np.ndindex(out.shape):
+        out[pos] = fn(*(x.shards[pos] for x in xs))
+    return Sharded(xs[0].mesh, out, xs[0].spec)
 
 
 def shard(t: torch.Tensor, spec, mesh) -> Sharded:
@@ -421,6 +513,16 @@ def psum(x: Sharded, axes) -> Sharded:
 
 def pmean(x: Sharded, axes) -> Sharded:
     return _reduce(x, axes, lambda ts: torch.stack(ts).mean(0))
+
+
+def psum_replicas(x: Sharded) -> Sharded:
+    """Sum the copies of each block over the mesh axes its spec does not
+    name, keeping the spec: the gradient of a leaf whose copies were used
+    apart (each copy's gradient holds the part of the loss that went
+    through it)."""
+    used = {a for e in x.spec for a in _axes(e)}
+    free = tuple(a for a in x.mesh.axis_names if a not in used)
+    return psum(x, free).with_spec(x.spec) if free else x
 
 
 def all_to_all(x: Sharded, axes, split_dim: int = 0,

@@ -9,10 +9,11 @@ the shard list), as JAX's single controller does. ``AbstractMesh`` holds
 the axis names and sizes alone, which is all the sharding rules read.
 
 Axis roles (as in the reference):
-  pod   — outermost data parallelism
-  data  — batch sharding
-  model — expert parallel (MoE), KV-sequence parallel (seq-sharded
-          decode), index-row parallel (the sharded MIPS tier)
+  pod   — outermost data parallelism (across hosts: not driven here)
+  data  — batch sharding, FSDP
+  model — tensor parallel (heads, MLP, vocab), expert parallel (MoE),
+          KV-sequence parallel (seq-sharded decode), index-row parallel
+          (the sharded MIPS tier)
 
 A mesh may name one device more than once only when the caller lists the
 devices (``make_mesh(..., devices=[...])``): tests run eight shards on
@@ -105,15 +106,27 @@ def make_local_mesh(model: int = 1, data: int = 1,
                      _distinct(device, data * model))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's production mesh is a TPU pod slice: (data 16, model
-    16) = 256 chips, or (pod 2, data 16, model 16) = 512. Its card
-    topology is for the training half of the distributed port to decide."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    raise NotImplementedError(
-        f"the production mesh {shape} is a TPU v5e pod shape; the card "
-        "topology that replaces it is decided with sharded training "
-        "(ROADMAP A10b, training half)")
+MULTI_HOST = ("ROADMAP A14, multi-host training (torch.distributed, "
+              "NCCL): the pod axis and --multipod")
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The training mesh of one node: (data 1, model n) over its n visible
+    cards (or ``devices``, which may repeat one), the counterpart of a
+    pod's 16-chip model axis on one NVLink node. The reference's
+    ``multi_pod`` mesh adds a ``pod`` axis across hosts, which one
+    controller cannot drive: it raises ``NotImplementedError`` naming the
+    ROADMAP item that ports it."""
+    if multi_pod:
+        raise NotImplementedError(
+            f"the multi-pod mesh (pod 2, data 16, model 16) spans hosts; "
+            f"one process drives one node's cards: {MULTI_HOST}")
+    if devices is None:
+        devices = _distinct("cuda", torch.cuda.device_count())
+    if not devices:
+        raise ValueError("no CUDA device is visible for the training mesh; "
+                         "list the devices (e.g. devices=['cpu'])")
+    return make_mesh((1, len(devices)), ("data", "model"), devices)
 
 
 def batch_axes_of(mesh) -> tuple:

@@ -1,27 +1,39 @@
-"""Training launcher on one device (the port of the JAX package's
-``launch/train.py``; CUDA unless ``--device cpu``).
+"""Training launcher: any arch on one device or a mesh (the port of the JAX
+package's ``launch/train.py``; CUDA unless ``--device cpu``).
 
-Reduced config, CPU-runnable:
+Reduced config on one device, CPU-runnable:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --smoke --device cpu --steps 20
 
-Full config on one card (bf16 params, f32 AdamW state, blockwise
-attention):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-      --batch 4 --seq 256 --steps 100 --ckpt runs/ck [--compress]
+Production posture: the reference's ``train_4k`` shape (256 x 4096 tokens
+unless ``--batch``/``--seq`` say otherwise) on a ("data", "model") mesh
+over the node's cards (``make_production_mesh``), with ``make_runcfg``'s
+layout (heads and MLP split over model, FSDP over data, expert-parallel
+MoE, remat), the accumulation of ``specs.train_accum``, params and AdamW
+state placed by the sharding rules:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+      --steps 1000 --ckpt runs/llama32 [--compress]
+
+``--mesh D,M`` lays a (data D, model M) mesh over ``--device`` repeated
+(the tests run ``--device cpu --mesh 2,4``; ``--mesh 2,2`` puts four
+shards on one card). ``--multipod`` (the reference's pod axis, across
+hosts) raises: one process drives one node (ROADMAP A14).
 
 Checkpoints are written asynchronously every ``--ckpt-every`` steps in the
-reference's layout, and a run restarted with the same ``--ckpt`` resumes
-from the latest one. The reference's production shape (``train_4k``: 256 x
-4096 tokens) and ``--multipod`` run on a device mesh, which is the
-distributed slice of the port (ROADMAP A10b), not this launcher.
+reference's mesh-agnostic layout, and a run restarted with the same
+``--ckpt`` resumes from the latest one, restored onto the current mesh
+whatever mesh wrote it.
 """
 import argparse
+import dataclasses
 import time
 
 import torch
 
 from repro_torch.configs import SHAPES, get_config, reduced
+from repro_torch.distributed import sharding as Sh
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.training import checkpoint as CK
 from repro_torch.training import compression as GC
@@ -29,8 +41,15 @@ from repro_torch.training import data as D
 from repro_torch.training import optimizer as O
 from repro_torch.training import train as T
 
-MESH_MSG = ("needs a device mesh: the distributed half of training "
-            "(torch.distributed, ROADMAP A10b) is not ported")
+
+def _mesh(args):
+    if args.mesh:
+        shape = tuple(int(s) for s in args.mesh.split(","))
+        n = shape[0] * shape[1]
+        return make_mesh(shape, ("data", "model"), [args.device] * n)
+    if torch.device(args.device).type == "cuda":
+        return make_production_mesh()
+    return make_production_mesh(devices=[args.device])
 
 
 def main(argv=None):
@@ -38,37 +57,41 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced config + tiny batch (CPU-runnable)")
+                    help="reduced config + tiny batch on one device")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--accum", type=int, default=None)
     ap.add_argument("--multipod", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: a (data, model) mesh over --device repeated")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.multipod:
-        raise NotImplementedError(f"--multipod {MESH_MSG}")
     cfg = get_config(args.arch)
+    if args.multipod:
+        make_production_mesh(multi_pod=True)      # raises: ROADMAP A14
     if args.smoke:
         cfg = reduced(cfg)
         B, S = args.batch or 4, args.seq or 64
-        run = M.RunCfg(attn_impl="naive")
+        mesh = None
+        run = M.RunCfg(attn_impl="naive", remat=False)
+        accum = args.accum or 1
     else:
-        if args.batch is None or args.seq is None:
-            shape = SHAPES["train_4k"]
-            raise NotImplementedError(
-                f"the production shape {shape.name} ({shape.global_batch} x "
-                f"{shape.seq_len} tokens) {MESH_MSG}; pass --batch and "
-                "--seq to train the full config on one device")
-        B, S = args.batch, args.seq
-        run = M.RunCfg(attn_impl="blockwise")
-    accum = args.accum or 1
-    dev = torch.device(args.device)
+        mesh = _mesh(args)
+        B = args.batch or SHAPES["train_4k"].global_batch
+        S = args.seq or SHAPES["train_4k"].seq_len
+        shape = dataclasses.replace(SHAPES["train_4k"], seq_len=S,
+                                    global_batch=B)
+        run = SP.train_runcfg(args.arch, cfg, shape, mesh)
+        accum = args.accum or SP.train_accum(args.arch, mesh, B)
+    dev = mesh.devices.flat[0] if mesh is not None else \
+        torch.device(args.device)
     print(f"train {cfg.name}: params~{cfg.param_count() / 1e9:.2f}B "
-          f"batch={B}x{S} accum={accum} device={dev}")
+          f"batch={B}x{S} accum={accum} "
+          f"mesh={mesh and dict(mesh.shape)} device={dev}")
 
     compress = None
     if args.compress:
@@ -83,6 +106,10 @@ def main(argv=None):
 
     params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                           device=dev)
+    pshard = None
+    if mesh is not None:
+        pshard = Sh.param_shardings(params, mesh, cfg)
+        params = Sh.place(params, pshard)
     opt = O.init(params)
     if args.compress:
         opt["grad_err"] = GC.init_error_state(params)
@@ -90,9 +117,14 @@ def main(argv=None):
     ck = CK.Checkpointer(args.ckpt) if args.ckpt else None
     start = 0
     if ck and ck.latest_step() is not None:
-        state, meta = ck.restore(device=dev)
+        if mesh is not None:
+            oshard = dict(O.state_shardings(pshard), grad_err=pshard)
+            state, meta = ck.restore(shardings={"params": pshard,
+                                                "opt": oshard})
+        else:
+            state, meta = ck.restore(device=dev)
+            state["opt"]["step"] = state["opt"]["step"].cpu()
         params, opt = state["params"], state["opt"]
-        opt["step"] = opt["step"].cpu()
         if args.compress and "grad_err" not in opt:
             opt["grad_err"] = GC.init_error_state(params)
         start = meta["step"]

@@ -37,10 +37,11 @@ def _tree(x, fn):
     return fn(x)
 
 
-def to_tensor(a, device="cuda") -> torch.Tensor:
+def to_tensor(a, device="cuda", copy=True) -> torch.Tensor:
     """A numpy array (or anything ``np.asarray`` takes) as a tensor of its
     own on ``device`` (one copy); 2-byte ``V`` arrays (bf16 bits) as
-    bf16."""
+    bf16. ``copy=False`` on the CPU shares a writable C-ordered array's
+    memory."""
     a = np.asarray(a)
     bf16 = a.dtype.kind == "V" and a.dtype.itemsize == 2
     if bf16:
@@ -49,7 +50,7 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
     if not (a.flags.writeable and a.flags.c_contiguous):
         a = np.array(a)
     t = torch.from_numpy(a)
-    return (t.view(torch.bfloat16) if bf16 else t).to(device, copy=True)
+    return (t.view(torch.bfloat16) if bf16 else t).to(device, copy=copy)
 
 
 def to_numpy(t) -> np.ndarray:
@@ -61,9 +62,9 @@ def to_numpy(t) -> np.ndarray:
     return h.numpy()
 
 
-def params_from_jax(tree, device="cuda"):
+def params_from_jax(tree, device="cuda", copy=True):
     def to_t(a):
-        return to_tensor(a, device)
+        return to_tensor(a, device, copy)
 
     out = {k: _tree(v, to_t) for k, v in tree.items() if k not in STACKS}
     for k in STACKS:

@@ -58,6 +58,7 @@ import functools
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.decode_attn import (gqa_decode_seq_sharded,
                                                  mla_decode_seq_sharded)
@@ -76,25 +77,43 @@ DECODE_SPLITS = 8      # split-KV chunks per decode_attention launch
 
 @dataclasses.dataclass(frozen=True)
 class RunCfg:
-    """Implementation knobs, not architecture."""
+    """Implementation knobs, not architecture: the reference's fields with
+    its defaults. ``remat`` recomputes each layer's activations in the
+    backward (memory, not values); ``scan_layers`` is accepted and has no
+    effect (the port loops over its per-layer lists either way);
+    ``logits_f32`` casts the logits; ``ssm_chunk`` overrides the config's
+    SSD chunk (exact at any size). ``heads_sharded``, ``repeat_kv``,
+    ``seq_parallel`` and ``pin_ssm`` lay out training on a mesh
+    (``distributed/train_parallel.py``); on one device they change
+    nothing."""
     attn_impl: str = "blockwise"      # kernel | naive | blockwise
     schedule: str = "rect"            # rect | tri (causal tile skipping)
     q_block: int = 512
     kv_block: int = 1024
     moe_impl: str = "scatter"         # scatter | einsum | ep
     moe_group: int = 2048
+    remat: bool = True
+    scan_layers: bool = True
     decode_attn: str = "naive"        # naive (one device) | seq_sharded
     mesh: Any = None                  # launch/mesh.Mesh of the mesh paths
     ep_axis: str = "model"
     seq_axis: str = "model"
     batch_axes: Tuple[str, ...] = ("data",)
     aux_coef: float = 0.01
+    logits_f32: bool = False
+    heads_sharded: bool = False       # q heads split over "model"
+    repeat_kv: bool = False           # kv replicated, repeated to the q heads
+    ssm_chunk: int = 0                # 0: the config's
+    seq_parallel: bool = False        # residual stream split on the sequence
+    pin_ssm: bool = False             # SSD batch-only (the port's only layout)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
 
 KERNEL = RunCfg(attn_impl="kernel")   # the serving path's prefill
+SMOKE = RunCfg(attn_impl="naive", remat=False, q_block=64, kv_block=64,
+               moe_group=64)
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +461,8 @@ def block_fullseq(cfg, p, x, positions, kind="dense", run=KERNEL, *,
     (else None)."""
     if kind == "ssm":
         h, (hs, conv) = Ssm.ssm_forward(
-            cfg, p["ssm"], Lyr.rmsnorm(p["ln"], x, cfg.norm_eps))
+            cfg, p["ssm"], Lyr.rmsnorm(p["ln"], x, cfg.norm_eps),
+            chunk=run.ssm_chunk or None)
         aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
         return x + h, aux, {"h": hs, "conv": conv}
     if kind not in ("dense", "enc", "dec", "moe", "moe_dense0"):
@@ -520,6 +540,10 @@ def lm_logits(cfg, params, x):
     return logits
 
 
+def _cast(logits, run):
+    return logits.float() if run.logits_f32 else logits
+
+
 @functools.lru_cache(maxsize=None)
 def _sinusoid(seq_len: int, d_model: int, device: torch.device):
     # one host->device copy per (length, width, device), not one a step
@@ -586,10 +610,17 @@ def _run_stack(cfg, params, tokens, run, *, positions=None, frames=None,
         x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
     entries, attn = [], []
 
+    remat = run.remat and not build_cache and torch.is_grad_enabled()
+
     def layer(p, kind, **kw):
         nonlocal x, aux
-        x, a, kv = block_fullseq(cfg, p, x, positions, kind, run,
-                                 with_aux=with_aux, **kw)
+        if remat:    # the layer's activations are recomputed in backward
+            x, a, kv = checkpoint(block_fullseq, cfg, p, x, positions, kind,
+                                  run, with_aux=with_aux, use_reentrant=False,
+                                  **kw)
+        else:
+            x, a, kv = block_fullseq(cfg, p, x, positions, kind, run,
+                                     with_aux=with_aux, **kw)
         if with_aux:
             aux = aux + a
         return kv
@@ -626,7 +657,7 @@ def forward(cfg, params, batch, run=RunCfg()):
                            frames=batch.get("frames"),
                            mrope_positions=batch.get("mrope_positions"),
                            with_aux=True)
-    return lm_logits(cfg, params, x), {"moe_aux": aux}
+    return _cast(lm_logits(cfg, params, x), run), {"moe_aux": aux}
 
 
 def lm_loss(cfg, params, batch, run=RunCfg()):
@@ -671,7 +702,7 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None, *,
                  _pad_seq(t, max_len) for n, t in cache.items()}
     if _seq_sharded(run):
         place_cache(cache, run)
-    return lm_logits(cfg, params, x[:, -1:]), cache
+    return _cast(lm_logits(cfg, params, x[:, -1:]), run), cache
 
 
 def cache_struct(cfg, batch, max_len, dtype=None):

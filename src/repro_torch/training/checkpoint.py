@@ -21,6 +21,11 @@ the reference's ``np.save`` of an ``ml_dtypes.bfloat16`` array writes.
   ``steps``/``latest_step`` believe only directories with a ``meta.json``
   and no ``.tmp`` suffix.
 * ``keep`` — the newest ``keep`` checkpoints stay, older ones are removed.
+* **Mesh-agnostic** — a ``Sharded`` leaf is written as its global array
+  (one replica of each block), so the files do not depend on the mesh
+  they came from; ``restore(shardings=)`` lays every leaf out on any
+  mesh (the elastic re-shard: from one device, from another mesh shape,
+  or from a checkpoint the reference wrote).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Sharded, place
 from repro_torch.models.convert import params_from_jax, to_numpy, to_tensor
 
 
@@ -47,6 +53,8 @@ def _host(node):
         if items and isinstance(items[0], dict):
             return _stack(items)
         return items
+    if isinstance(node, Sharded):      # assembled on its mesh, one copy out
+        return to_numpy(node.full())
     if isinstance(node, torch.Tensor):
         return to_numpy(node)
     return np.array(node)
@@ -91,16 +99,17 @@ def _dtype_name(a: np.ndarray) -> str:
         else str(a.dtype)
 
 
-def to_port(tree, device="cuda"):
+def to_port(tree, device="cuda", copy=True):
     """A restored tree (the reference's layout) as the port's: each
     params-shaped subtree (a dict with an ``embed`` entry: the params,
     AdamW's master, m and v, the compression error state) through
-    ``params_from_jax``, every other array as a tensor on ``device``."""
+    ``params_from_jax``, every other array as a tensor on ``device``
+    (``copy=False``: CPU tensors sharing the arrays' memory)."""
     if isinstance(tree, dict):
         if "embed" in tree:
-            return params_from_jax(tree, device=device)
-        return {k: to_port(v, device) for k, v in tree.items()}
-    return to_tensor(tree, device)
+            return params_from_jax(tree, device=device, copy=copy)
+        return {k: to_port(v, device, copy) for k, v in tree.items()}
+    return to_tensor(tree, device, copy)
 
 
 class Checkpointer:
@@ -164,9 +173,13 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: Optional[int] = None, device=None):
-        """Returns (state, meta): the reference's numpy pytree, or with
-        ``device`` the port's tensors there (``to_port``)."""
+    def restore(self, step: Optional[int] = None, device=None,
+                shardings=None):
+        """Returns (state, meta): the reference's numpy pytree, with
+        ``device`` the port's tensors there (``to_port``), or with
+        ``shardings`` (a tree of ``sharding.NamedSharding`` of the port's
+        state, on any mesh; None leaves stay on the host) the port's
+        state laid out on that mesh (``sharding.place``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.root}")
@@ -175,6 +188,8 @@ class Checkpointer:
         flat = {k: np.load(d / (k.replace("/", "__") + ".npy"))
                 for k in meta["keys"]}
         state = _unflatten(flat)
-        if device is not None:
+        if shardings is not None:
+            state = place(to_port(state, "cpu", copy=False), shardings)
+        elif device is not None:
             state = to_port(state, device)
         return state, meta

@@ -11,18 +11,21 @@ int8 codes. ``torch.round`` rounds half to even, as ``jnp.round`` does,
 so both packages give the same codes. The scale is per array of the
 reference's layout: the reference holds a layer stack's leaves as one
 (L, ...) array with one scale, so the port's per-layer leaves of a stack
-share theirs.
+share theirs. On a mesh the scale is the whole leaf's: the max over its
+shards' ``abs().max()`` (a ``pmax``), and each shard is quantized with
+it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import elementwise, parts
 from repro_torch.models.convert import STACKS, tree_leaves, tree_map
 
 
 def init_error_state(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: elementwise(lambda t: torch.zeros(
+        t.shape, dtype=torch.float32, device=t.device), p), params)
 
 
 def quantize_int8(x, scale=None):
@@ -63,15 +66,19 @@ def compress_grads(grads, err_state):
     """Returns (the dequantized grads every worker would see, the new
     error state), trees of the grads' shape. One scale per array of the
     reference's layout: a layer stack's leaves share theirs."""
-    gs = [g.float() + e for g, e in zip(tree_leaves(grads),
-                                        tree_leaves(err_state))]
+    gs = [elementwise(lambda g, e: g.float() + e, g, e)
+          for g, e in zip(tree_leaves(grads), tree_leaves(err_state))]
     dqs = [None] * len(gs)
     for group in _groups(grads):
-        scale = torch.clamp(torch.stack([gs[i].abs().max() for i in group])
-                            .max(), min=1e-12) / 127.0
+        dev = parts(gs[group[0]])[0].device
+        scale = torch.clamp(torch.stack([t.abs().max().to(dev)
+                                         for i in group
+                                         for t in parts(gs[i])]).max(),
+                            min=1e-12) / 127.0
         for i in group:
-            dqs[i] = dequantize(quantize_int8(gs[i], scale)[0], scale)
+            dqs[i] = elementwise(lambda g: dequantize(quantize_int8(
+                g, scale.to(g.device))[0], scale.to(g.device)), gs[i])
     it_dq = iter(dqs)
-    it_err = iter([g - dq for g, dq in zip(gs, dqs)])
+    it_err = iter([elementwise(torch.sub, g, dq) for g, dq in zip(gs, dqs)])
     return (tree_map(lambda _: next(it_dq), grads),
             tree_map(lambda _: next(it_err), grads))

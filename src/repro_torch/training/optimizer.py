@@ -1,6 +1,5 @@
 """AdamW with f32 master params, ported from the JAX package's
-``training/optimizer.py`` (single device; its ``state_specs`` sharding
-belongs to the distributed slice).
+``training/optimizer.py``.
 
 Optimizer state = {master (f32 copy of params), m, v (f32), step (int32,
 a 0-dim tensor on the host)}: trees of the params' shape (dicts and
@@ -9,6 +8,12 @@ the reference's mixed precision); ``update`` writes each as a cast of its
 f32 master after the Adam step. Unlike the reference, which returns new
 trees, ``update`` writes the state and the params IN PLACE (no second
 copy of a full-size model) and returns the same objects.
+
+On a mesh the params are ``Sharded`` leaves, and master, m and v are laid
+out as the params (``state_specs``: ZeRO-3, no replicated optimizer
+memory): ``init`` and ``update`` work per shard, elementwise, and
+``global_norm`` reads one replica of each block. The step stays on the
+host, where the controller reads it.
 
 Optional int8 gradient compression with error feedback lives in
 ``repro_torch.training.compression`` and is applied to the gradients
@@ -21,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import blocks, elementwise, parts
 from repro_torch.models.convert import STACKS, tree_leaves, tree_map
 
 
@@ -54,37 +60,57 @@ def lr_at(ocfg: AdamWCfg, step) -> float:
                  * (f(ocfg.min_lr_frac) + f(1 - ocfg.min_lr_frac) * cos))
 
 
+def _zeros32(p):
+    return elementwise(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                             device=t.device), p)
+
+
 def init(params):
     return {
-        "master": tree_map(lambda p: p.detach().float().clone(), params),
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
+        "master": tree_map(lambda p: elementwise(
+            lambda t: t.detach().float().clone(), p), params),
+        "m": tree_map(_zeros32, params),
+        "v": tree_map(_zeros32, params),
         "step": torch.zeros((), dtype=torch.int32),
     }
 
 
+def state_specs(param_specs_tree):
+    """The optimizer state's specs given the params': master, m and v laid
+    out as the params, the step replicated (the reference's)."""
+    return {"master": param_specs_tree, "m": param_specs_tree,
+            "v": param_specs_tree, "step": ()}
+
+
+def state_shardings(param_shardings_tree):
+    """``state_specs`` as placements (``sharding.place``): the step has
+    none, it stays on the host."""
+    return {"master": param_shardings_tree, "m": param_shardings_tree,
+            "v": param_shardings_tree, "step": None}
+
+
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, f32 (a 0-dim tensor on the
-    leaves' device)."""
+    first leaf's device); a ``Sharded`` leaf counts each block once."""
     total = None
     for g in tree_leaves(tree):
-        sq = torch.sum(g.float() ** 2)
-        total = sq if total is None else total + sq
+        for b in blocks(g):
+            sq = torch.sum(b.float() ** 2)
+            total = sq if total is None else total + sq.to(total.device)
     return torch.sqrt(total)
 
 
 def _decays(params):
     """Per leaf, in ``tree_leaves`` order: whether weight decay applies,
-    i.e. the leaf has two or more dims in the reference's layout, where
+    i.e. the leaf (the global one of a ``Sharded``) has two or more dims
+    in the reference's layout, where
     every leaf of a layer stack (``convert.STACKS``) carries the stack's
     leading L axis. So a per-layer norm scale or bias decays, as it does
     in the reference; zamba2's unstacked shared block's do not."""
     out = []
     for k, v in params.items():
         extra = 1 if k in STACKS else 0
-        out += [t.dim() + extra >= 2 for t in tree_leaves(v)]
+        out += [len(t.shape) + extra >= 2 for t in tree_leaves(v)]
     return out
 
 
@@ -103,16 +129,18 @@ def update(ocfg: AdamWCfg, grads, state, params):
     f = np.float32
     bc1 = float(f(1) - f(b1) ** f(step))
     bc2 = float(f(1) - f(b2) ** f(step))
-    for g, m, v, master, p, decay in zip(*(tree_leaves(t) for t in (
-            grads, state["m"], state["v"], state["master"], params)),
+    for leaves, decay in zip(zip(*(tree_leaves(t) for t in (
+            grads, state["m"], state["v"], state["master"], params))),
             _decays(params)):
-        g = g.float() * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
-        if decay:
-            upd = upd + ocfg.weight_decay * master
-        master.copy_(master - lr * upd)
-        p.copy_(master)
+        for g, m, v, master, p in zip(*(parts(t) for t in leaves)):
+            g = g.float() * (scale.to(g.device) if torch.is_tensor(scale)
+                             else scale)
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
+            if decay:
+                upd = upd + ocfg.weight_decay * master
+            master.copy_(master - lr * upd)
+            p.copy_(master)
     state["step"] = torch.tensor(step, dtype=torch.int32)
     return params, state, {"grad_norm": gnorm, "lr": lr}

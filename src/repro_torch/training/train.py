@@ -1,5 +1,6 @@
 """Train step: loss -> grads (with microbatch accumulation) -> AdamW,
-ported from the JAX package's ``training/train.py`` for one device.
+ported from the JAX package's ``training/train.py``, on one device or a
+mesh.
 
 ``make_train_step(cfg, run, ocfg, accum, compress)`` returns
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
@@ -15,11 +16,22 @@ are updated in place (``optimizer.update``).
 The attention under autograd must be ``RunCfg(attn_impl="blockwise")``
 (the reference's default) or ``"naive"``: the ``flash_attention`` kernel
 has no backward and raises.
+
+With ``run.mesh`` the params and the optimizer state are ``Sharded``
+leaves (``sharding.place`` per ``param_shardings`` and
+``optimizer.state_shardings``) and the loss and gradients are
+``distributed/train_parallel.py``'s: the microbatches are the reference's
+contiguous slices of the global batch, each then split over the batch
+axes; each microbatch's loss is normalised over its own valid labels.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.distributed import train_parallel
+from repro_torch.distributed.sharding import elementwise
 from repro_torch.models import model as M
 from repro_torch.models.convert import tree_leaves, tree_map
 from repro_torch.training import optimizer as O
@@ -42,7 +54,10 @@ def _split_batch(batch, accum):
 def make_grad_fn(cfg, run):
     """``grad_fn(params, batch) -> (loss, metrics, grads)``: grads a list in
     ``tree_leaves(params)`` order, in the params' dtypes (zeros for a
-    param the loss does not reach, as ``jax.grad`` gives)."""
+    param the loss does not reach, as ``jax.grad`` gives); on a mesh,
+    ``train_parallel.grad_fn``'s f32 ``Sharded`` grads."""
+    if run.mesh is not None:
+        return functools.partial(train_parallel.grad_fn, cfg, run)
 
     def grad_fn(params, batch):
         leaves = list(tree_leaves(params))
@@ -62,27 +77,42 @@ def make_grad_fn(cfg, run):
     return grad_fn
 
 
+def _f32(g):
+    return g.float()
+
+
+def _acc(a, b):
+    return a + b.float()
+
+
+def accumulate(grad_fn, params, batch, accum=1):
+    """(loss, metrics, grads): ``grad_fn`` over ``accum`` microbatches,
+    f32 grads summed and divided by ``accum``, the loss the mean of the
+    microbatches' (grads a tree of the params' shape)."""
+    if accum == 1:
+        loss, metrics, grads = grad_fn(params, batch)
+        grads = [elementwise(_f32, g) for g in grads]
+    else:
+        grads, losses = None, []
+        for mb in _split_batch(batch, accum):
+            l, _, g = grad_fn(params, mb)
+            losses.append(l)
+            grads = [elementwise(_f32, x) for x in g] if grads is None \
+                else [elementwise(_acc, a, b) for a, b in zip(grads, g)]
+        grads = [elementwise(lambda g: g / accum, g) for g in grads]
+        loss = torch.stack(losses).mean()
+        metrics = {"loss": loss,
+                   "moe_aux": torch.zeros((), device=loss.device)}
+    it = iter(grads)
+    return loss, metrics, tree_map(lambda _: next(it), params)
+
+
 def make_train_step(cfg, run=M.RunCfg(), ocfg=O.AdamWCfg(), accum=1,
                     compress=None):
     grad_fn = make_grad_fn(cfg, run)
 
     def train_step(params, opt_state, batch):
-        if accum == 1:
-            loss, metrics, grads = grad_fn(params, batch)
-            grads = [g.float() for g in grads]
-        else:
-            grads, losses = None, []
-            for mb in _split_batch(batch, accum):
-                l, _, g = grad_fn(params, mb)
-                losses.append(l)
-                grads = [x.float() for x in g] if grads is None else \
-                    [a + b.float() for a, b in zip(grads, g)]
-            grads = [g / accum for g in grads]
-            loss = torch.stack(losses).mean()
-            metrics = {"loss": loss,
-                       "moe_aux": torch.zeros((), device=loss.device)}
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), params)
+        loss, metrics, grads = accumulate(grad_fn, params, batch, accum)
         if compress is not None:
             grads, opt_state = compress(grads, opt_state)
         params, opt_state, om = O.update(ocfg, grads, opt_state, params)

@@ -454,8 +454,13 @@ def test_meshes_refuse_what_they_cannot_place():
                                                           "model": 1}
     with pytest.raises(ValueError, match="one type"):
         Meshes.make_mesh((2,), ("model",), devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="TPU"):
-        Meshes.make_production_mesh()
+    with pytest.raises(NotImplementedError, match="A14"):
+        Meshes.make_production_mesh(multi_pod=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="no CUDA device"):
+            Meshes.make_production_mesh()
+    prod = Meshes.make_production_mesh(devices=["cpu"] * 4)
+    assert prod.shape == {"data": 1, "model": 4}
     mesh = _cpu_mesh()
     t = torch.arange(64.).reshape(4, 16)
     s = shard(t, (None, ("data", "model")), mesh)

@@ -1180,3 +1180,97 @@ def test_gpu_mesh_mixing_devices_raises(cuda):
         make_mesh((2,), ("model",), devices=[cuda, "cpu"])
     with pytest.raises(ValueError, match="distinct cuda"):
         make_local_mesh(model=torch.cuda.device_count() + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_gpu_mesh_train_step_matches_one_device(cuda, arch, shape):
+    """Two train steps on four shards of the card (TP heads and MLP or MLA
+    and expert parallel, FSDP, vocab-split logits, remat, sequence
+    parallel on the second) against one device's, f32, TF32 off: losses
+    within 1e-5 relative, grad norms within 1e-4, params within 1e-4 (a
+    tenth of lr: Adam's first steps move a weight by about lr times the
+    sign of its gradient, which rounding decides near 0). Neither B3 nor
+    B4 is launched."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.launch.specs import make_runcfg
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as T
+    cfg, params, data = _train_setup(arch)
+    mesh = _card_mesh(cuda, *shape)
+    run = make_runcfg(cfg, ShapeConfig("train", 32, 4, "train"), mesh,
+                      q_block=16, kv_block=16)
+    ocfg = O.AdamWCfg(lr=1e-3, warmup_steps=1)
+    res = []
+    ops.reset_launch_counts()
+    for r in (run.replace(mesh=None, moe_impl="scatter"), run):
+        p = _copy(params, cuda)
+        if r.mesh is not None:
+            p = Sh.place(p, Sh.param_shardings(p, mesh, cfg))
+        o = O.init(p)
+        ms = []
+        for i, sp in enumerate((False, True)):
+            b = {k: torch.from_numpy(v).long().to(cuda)
+                 for k, v in data.batch(i).items()}
+            p, o, m = T.make_train_step(cfg, r.replace(seq_parallel=sp),
+                                        ocfg)(p, o, b)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        res.append((ms, [t.cpu() for t in tree_leaves(Sh.gather(p))]))
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert ops.launch_counts()["decode_attention"] == 0
+    for (l0, g0), (l1, g1) in zip(res[0][0], res[1][0]):
+        np.testing.assert_allclose(l1, l0, rtol=1e-5)
+        np.testing.assert_allclose(g1, g0, rtol=1e-4)
+    for a, b in zip(res[0][1], res[1][1]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_checkpoint_restores_across_meshes_bit_for_bit(cuda,
+                                                                tmp_path):
+    """bf16 params and f32 AdamW state on a (2, 2) mesh of the card, one
+    step, saved; restored onto (1, 4) and onto one device: every leaf
+    bit for bit; the next step's loss on (1, 4) within 1e-3 of the next
+    on (2, 2) (bf16: the row-parallel products split over 4 shards, not
+    2, and each partial sum is rounded to bf16, 2^-8 relative)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.launch.specs import make_runcfg
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as T
+    cfg, params, data = _train_setup()
+    ocfg = O.AdamWCfg(lr=1e-3, warmup_steps=1)
+    batch = [{k: torch.from_numpy(v).long().to(cuda) for k, v in
+              data.batch(i).items()} for i in range(2)]
+    meshes = [_card_mesh(cuda, 2, 2), _card_mesh(cuda, 1, 4)]
+    runs = [make_runcfg(cfg, ShapeConfig("train", 32, 4, "train"), m,
+                        q_block=16, kv_block=16) for m in meshes]
+    p = _copy(params, cuda, torch.bfloat16)
+    pshard = Sh.param_shardings(p, meshes[0], cfg)
+    p = Sh.place(p, pshard)
+    o = O.init(p)
+    p, o, _ = T.make_train_step(cfg, runs[0], ocfg)(p, o, batch[0])
+    ck = CK.Checkpointer(tmp_path / "ck")
+    ck.save(1, {"params": p, "opt": o}, blocking=True)
+    want = [t.cpu() for t in tree_leaves(Sh.gather({"params": p,
+                                                    "opt": o}))]
+    ps_b = Sh.param_shardings(p, meshes[1], cfg)
+    st, _ = ck.restore(shardings={"params": ps_b,
+                                  "opt": O.state_shardings(ps_b)})
+    assert all(t.shards.flat[0].device.type == cuda.type
+               for t in tree_leaves(st["params"]))
+    got = [t.cpu() for t in tree_leaves(Sh.gather(st))]
+    one, _ = ck.restore(device=cuda)
+    for a, b, c in zip(want, got, tree_leaves(one)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(a, c.cpu())
+    p1, _, m1 = T.make_train_step(cfg, runs[0], ocfg)(p, o, batch[1])
+    p2, _, m2 = T.make_train_step(cfg, runs[1], ocfg)(st["params"],
+                                                      st["opt"], batch[1])
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-3)

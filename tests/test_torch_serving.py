@@ -202,7 +202,8 @@ def test_port_sources_import_no_jax_and_no_reference():
             "models/blockwise.py", "training/__init__.py",
             "training/optimizer.py", "training/train.py",
             "training/compression.py", "training/data.py",
-            "training/checkpoint.py", "launch/train.py"} <= names
+            "training/checkpoint.py", "launch/train.py",
+            "distributed/train_parallel.py", "launch/specs.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -255,6 +256,21 @@ launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                    "--steps", "2", "--batch", "2", "--seq", "16", "--ckpt",
                    ck, "--ckpt-every", "1", "--compress"])
 assert CK.Checkpointer(ck).latest_step() == 2
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import sharding as Sh
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.training import optimizer as O
+from repro_torch.training import train as T
+mc = reduced(get_config("qwen3-1.7b"))
+mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+params = M.init_model(mc, torch.Generator().manual_seed(0),
+                      dtype="float32", device="cpu")
+params = Sh.place(params, Sh.param_shardings(params, mesh, mc))
+run = SP.make_runcfg(mc, ShapeConfig("t", 16, 4, "train"), mesh)
+b = {"tokens": torch.ones(4, 16, dtype=torch.long),
+     "labels": torch.ones(4, 16, dtype=torch.long)}
+T.make_train_step(mc, run)(params, O.init(params), b)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
