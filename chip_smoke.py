@@ -90,6 +90,21 @@ result line is printed only when every phase passed:
    seq-sharded decode attention, identical to the one-device decode (B3);
    (c) one MLA layer and (d) one MoE layer (expert parallel) at
    deepseek-v2-lite-16b's widths against one device.
+16. mesh train — phase 14's state on a (data 2, model 2) mesh of the card:
+   restored bit for bit, one step against one device's, three more steps,
+   saved and restored onto (data 1, model 4) bit for bit.
+17. multihost train — (a) the launcher's ``--multipod --pods 2`` at the
+   reduced config: refused under NCCL (two ranks on one card), trained
+   over ``gloo``; (b) two pods, one process each (``gloo``) on the card,
+   each restoring phase 14's checkpoint onto its (data 1, model 1) mesh:
+   one step on its rows ``[p::2]`` of phase 16's batch against phase 16's
+   one-device step, the ranks' state identical after every step, two more
+   steps, the gradient all-reduce timed; rank 0's checkpoint restored onto
+   one device bit for bit (a ``reduced:`` line: the pods share one card).
+18. examples — ``examples/{quickstart,storinfer_serve,train_small}_torch
+   .py`` called in process on the card: the quickstart's hit rate as on
+   the CPU, the serve example on B1, B3 and B4 with request 1 cancelled,
+   the train example trained, then resumed, its loss falling.
 
 Phase 3 also holds B3 and B4 at grok-1's and zamba2's head shapes, B4 at
 MLA's (q/k 192, v 128), and both at phase 13's: whisper-base's encoder
@@ -106,7 +121,9 @@ power limit, and ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -159,7 +176,7 @@ VLM_LAYERS = 16
 LM_TRAIN_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_SEQ = 4, 256
 LM_REPEAT, LM_TIMED = 6, 5
-TRAIN_CKPT = ROOT / "build" / "chip_smoke" / "train_ckpt"   # 14 -> 16
+TRAIN_CKPT = ROOT / "build" / "chip_smoke" / "train_ckpt"   # 14 -> 16, 17
 # accum 2 against accum 1 after one step from a fresh state: the bf16
 # forward and backward of two half batches against one whole batch round
 # differently, so the loss (a mean over the same 1,024 labels) agrees to
@@ -1968,7 +1985,8 @@ def greedy_api(torch, cfg, params, tokens, kw, n, max_len, mrope_next=None):
     B, S = tokens.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, tokens, max_len, **kw)
+    logits, cache = M.prefill(cfg, params, dict(kw, tokens=tokens),
+                              max_len=max_len)
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
     ids, finite = [logits[:, -1].argmax(-1)], bool(
@@ -2199,7 +2217,8 @@ def phase_train_lm(torch, np, args, card, corpus, dev):
           f"last loss {float(m['loss']):.4f} on {card}")
 
     # a checkpoint: saved, then the uninterrupted step; restored, stepped
-    # (phase 16 restores it onto a mesh, then removes it)
+    # (phase 16 restores it onto a mesh, phase 17 onto two pods' meshes,
+    # then removes it)
     work = TRAIN_CKPT
     shutil.rmtree(work, ignore_errors=True)
     ck = CK.Checkpointer(work)
@@ -2444,13 +2463,13 @@ def phase_mesh(torch, np, args, card, corpus, engine, dev, slices):
     seq = M.KERNEL.replace(decode_attn="seq_sharded", mesh=mesh)
 
     def greedy(run):
-        lg, cache = M.prefill(mcfg, params, tokens, max_len, run=run)
+        lg, cache = M.prefill(mcfg, params, tokens, run, max_len=max_len)
         out_ids, logits = [lg[:, -1].argmax(-1)], [lg[:, -1]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(MAX_NEW):
             lg, cache = M.decode_step(mcfg, params, out_ids[-1][:, None],
-                                      cache, S + t, run=run)
+                                      cache, S + t, run)
             out_ids.append(lg[:, -1].argmax(-1))
             logits.append(lg[:, -1])
         torch.cuda.synchronize()
@@ -2689,7 +2708,6 @@ def phase_mesh_train(torch, np, args, card, corpus, dev):
             one["params"], one["opt"], b))
     del one
     release(torch)
-    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     step = T.make_train_step(cfg, run, ocfg)
     p, o = st["params"], st["opt"]
     del st
@@ -2779,7 +2797,390 @@ def phase_mesh_train(torch, np, args, card, corpus, dev):
     print(f"{label}: peak device memory with two states on the card: "
           f"{gib(peak_ab):.3f} GiB in (a)-(b), {gib(peak_d):.3f} GiB in "
           "(c)-(d)")
-    return {"mesh train": counts}
+    # phase 17 steps two pods from phase 14's state on this batch
+    one_step = {"loss": float(m1["loss"]),
+                "grad_norm": float(m1["grad_norm"]), "batch": b,
+                "s_step": s_one}
+    return {"mesh train": counts}, one_step
+
+
+# ---------------------------------------------------------------------------
+# phase 17: two pods, one process each (distributed/multihost.py)
+# ---------------------------------------------------------------------------
+
+POD_COUNT = 2
+POD_STEPS = 3                # the compared step, then two more
+POD_WAIT_S = 900             # the pod processes' whole run
+LAUNCHER_WAIT_S = 300        # (a)'s launcher run, reduced config
+
+
+def _checksums(torch, tree):
+    """``multihost.checksum`` of every tensor of ``tree``, in its order."""
+    from repro_torch.distributed import multihost
+    from repro_torch.distributed.sharding import parts
+    from repro_torch.models.convert import tree_leaves
+    return [multihost.checksum(t).tolist() for leaf in tree_leaves(tree)
+            for t in parts(leaf)]
+
+
+def pod_worker(job_path, rank):
+    """One pod of phase 17, in a process of its own: joins the ``gloo``
+    group, restores phase 14's checkpoint onto its (data 1, model 1) mesh
+    of the card (the ranks one after the other, so one 24 GB host copy is
+    held at a time), takes its rows ``[rank::2]`` of phase 16's batch and
+    runs ``POD_STEPS`` train steps, the last one profiled on rank 0; rank 0
+    then saves. Writes ``result{rank}.json`` beside the job."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.index import exact_fp32
+    from repro_torch.distributed import multihost
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as T
+
+    job = json.loads(Path(job_path).read_text())
+    out = Path(job["out"])
+    exact_fp32()
+    multihost.init("gloo", job["init"], rank, POD_COUNT)
+    # the launcher's split of the host's cards: both pods on the one card
+    devices = multihost.local_devices(job["device"], "gloo")
+    dev = devices[0]
+    cfg = get_config(LM_TRAIN_ARCH)
+    mesh = make_production_mesh(multi_pod=True, devices=devices)
+    shape = ShapeConfig("train", LM_SEQ, LM_BATCH // POD_COUNT, "train")
+    run = SP.train_runcfg(LM_TRAIN_ARCH, cfg, shape, mesh)
+    like = M.init_model(cfg, torch.Generator(), dtype=torch.bfloat16,
+                        device="meta")
+    shards = Sh.param_shardings(like, mesh, cfg)
+    t0 = time.perf_counter()
+    for r in range(POD_COUNT):
+        if r == rank:
+            st, _ = CK.Checkpointer(job["ckpt"]).restore(shardings={
+                "params": shards, "opt": O.state_shardings(shards)})
+            torch.cuda.synchronize()
+        multihost.barrier()
+    t_restore = time.perf_counter() - t0
+    batch = multihost.pod_rows({k: v.to(dev) for k, v in
+                                torch.load(job["batch"]).items()})
+    step = T.make_train_step(cfg, run, O.AdamWCfg())
+    p, o = st["params"], st["opt"]
+    del st
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = {"rank": rank, "mesh": dict(mesh.shape), "restore_s": t_restore,
+           "rows": int(batch["tokens"].shape[0]), "steps": []}
+    for i in range(POD_STEPS):
+        ar0 = multihost.stats["all_reduce_s"]
+        profiled = rank == 0 and i == POD_STEPS - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            wall, busy, (p, o, m) = step_profile(torch, lambda: step(p, o,
+                                                                     batch))
+            res["profiled"] = {"wall_s": wall, "busy_s": busy}
+        else:
+            p, o, m = step(p, o, batch)
+            torch.cuda.synchronize()
+        res["steps"].append({
+            "s": time.perf_counter() - t0, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "all_reduce_s": multihost.stats["all_reduce_s"] - ar0,
+            "identical": multihost.replicas_identical({"params": p,
+                                                       "opt": o})})
+    res.update(counts=ops.launch_counts(),
+               peak_gib=gib(torch.cuda.max_memory_allocated()),
+               all_reduce_bytes=multihost.stats["all_reduce_bytes"],
+               all_reduces=multihost.stats["all_reduces"])
+    if rank == 0:
+        t0 = time.perf_counter()
+        CK.Checkpointer(out / "ck").save(int(o["step"]),
+                                         {"params": p, "opt": o},
+                                         blocking=True)
+        res["save_s"] = time.perf_counter() - t0
+        res["checksums"] = _checksums(torch, {"params": p, "opt": o})
+    multihost.barrier()
+    (out / f"result{rank}.json").write_text(json.dumps(res))
+    multihost.shutdown()
+    return 0
+
+
+def _run_pods(job_path, work):
+    """Both pod processes of phase 17 (``multihost.spawn``); their logs
+    on failure."""
+    from repro_torch.distributed import multihost
+    try:
+        multihost.spawn([sys.executable, str(Path(__file__).resolve()),
+                         "--pod-job", str(job_path)], POD_COUNT, POD_WAIT_S,
+                        work)
+    except RuntimeError as e:
+        check(False, f"multihost train: {e}")
+
+
+def _launcher_pods(torch, work, label, kind):
+    """(a): the launcher users call, ``launch/train.py --multipod``, at the
+    reduced config on this card. Under NCCL (its default on cuda) two
+    pods on one card must refuse to start; over ``gloo`` its two
+    processes share the card, train, end identical and checkpoint."""
+    from repro_torch.launch import train as L
+    from repro_torch.training import checkpoint as CK
+    base = ["--arch", LM_TRAIN_ARCH, "--smoke", "--multipod", "--pods",
+            str(POD_COUNT), "--device", kind, "--steps", "3"]
+    if kind == "cuda" and torch.cuda.device_count() < POD_COUNT:
+        try:
+            L.main(base)
+            refused = "started"
+        except ValueError as e:
+            refused = str(e)
+        print(f"{label}: (a) the launcher with its default backend, nccl, "
+              f"{POD_COUNT} pods on {torch.cuda.device_count()} card: "
+              f"{refused}")
+        check("NCCL refuses" in refused, f"{label}: the launcher did not "
+              f"refuse {POD_COUNT} nccl pods on one card ({refused})")
+    ck = work / "launcher_ck"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *base,
+           "--backend", "gloo", "--ckpt", str(ck)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=LAUNCHER_WAIT_S)[0]
+    except subprocess.TimeoutExpired:
+        out = f"still running after {LAUNCHER_WAIT_S} s"
+    finally:
+        if proc.poll() is None:         # the launcher and its pods
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    took = time.perf_counter() - t0
+    mesh = f"mesh={{'pod': {POD_COUNT}, 'data': 1, 'model': 1}}"
+    step = CK.Checkpointer(ck).latest_step() if ck.exists() else None
+    where = "device=cuda:0" if kind == "cuda" else "device=cpu"
+    ok = (proc.returncode == 0 and mesh in out and where in out
+          and f"pods={POD_COUNT} replicas identical=True" in out
+          and out.strip().endswith("done") and step == 3)
+    lines = [ln for ln in out.splitlines() if ln.startswith(
+        ("train ", "step ", "pods="))]
+    print(f"{label}: (a) python -m repro_torch.launch.train "
+          f"{' '.join(cmd[3:-2])}: exit "
+          f"{proc.returncode} in {took:.1f} s, rank 0 printed: "
+          + " | ".join(lines) + f"; checkpoint at step {step}")
+    check(ok, f"{label}: (a) the launcher's two gloo pods on the card "
+          f"failed:\n{out[-3000:]}")
+    shutil.rmtree(ck, ignore_errors=True)
+
+
+def phase_multihost_train(torch, np, args, card, corpus, dev, one_step):
+    """17: (a) the launcher, ``launch/train.py --multipod --pods 2``, at
+    the reduced config on the card: refused under its default NCCL (two
+    ranks on one card), run over ``gloo`` (two processes, identical state,
+    a checkpoint). (b) qwen3-1.7b at full size over two pods, one process
+    each on the card (``distributed/multihost.py`` over ``gloo``, started
+    by ``multihost.spawn`` as the launcher starts its pods, on the cards
+    ``multihost.local_devices`` gives them), each restoring phase 14's
+    checkpoint onto its (data 1, model 1) mesh with remat on: one step on
+    rows ``[p::2]`` of
+    phase 16's batch against phase 16's one-device step on the whole batch
+    (loss and grad norm within phase 16's tolerances), both ranks' state
+    identical after every step (a per-leaf checksum broadcast from rank
+    0), two more steps with a falling loss; s per step, the gradient
+    all-reduce's seconds, peak memory per process, the idle share of rank
+    0's profiled step, B3 and B4 launches (0). Rank 0's checkpoint,
+    restored onto one device, must match its state bit for bit."""
+    from repro_torch.training import checkpoint as CK
+
+    label = "multihost train"
+    release(torch)
+    work = ROOT / "build" / "chip_smoke" / "pods"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.save({k: v.cpu() for k, v in one_step["batch"].items()},
+               work / "batch.pt")
+    job = work / "job.json"
+    job.write_text(json.dumps({
+        "ckpt": str(TRAIN_CKPT), "batch": str(work / "batch.pt"),
+        "out": str(work), "init": f"file://{work / 'rendezvous'}",
+        "device": dev.type}))
+    print(f"reduced: phase 17's {POD_COUNT} pods are {POD_COUNT} processes "
+          "sharing one card: no byte crosses cards or hosts (the gradient "
+          "all-reduce runs over gloo through host memory and loopback)")
+    _launcher_pods(torch, work, label, dev.type)
+    rows = LM_BATCH // POD_COUNT
+    print(f"{label}: (b) {LM_TRAIN_ARCH} at full width and depth, {POD_COUNT} "
+          f"pods x a (data 1, model 1) mesh of the card, {rows} of the "
+          f"batch's {LM_BATCH} rows x {LM_SEQ} each, remat on, blockwise "
+          "attention, gloo")
+    t0 = time.perf_counter()
+    _run_pods(job, work)
+    t_pods = time.perf_counter() - t0
+    res = [json.loads((work / f"result{r}.json").read_text())
+           for r in range(POD_COUNT)]
+    r0 = res[0]
+    first = r0["steps"][0]
+    d_loss = abs(first["loss"] - one_step["loss"]) / one_step["loss"]
+    d_norm = abs(first["grad_norm"] - one_step["grad_norm"]) / \
+        one_step["grad_norm"]
+    losses = [s["loss"] for s in r0["steps"]]
+    same = all(s["identical"] for r in res for s in r["steps"])
+    same_loss = all(r["steps"][i]["loss"] == r0["steps"][i]["loss"]
+                    for r in res for i in range(POD_STEPS))
+    times = [s["s"] for s in r0["steps"]]
+    s_step = times[1]
+    ar = [round(s["all_reduce_s"], 3) for s in r0["steps"]]
+    prof = r0["profiled"]
+    busy = prof["busy_s"]
+    idle = None if busy is None else 1 - busy / prof["wall_s"]
+    counts = {k: sum(r["counts"][k] for r in res) for k in r0["counts"]}
+    print(f"{label}: the pods restored phase 14's checkpoint one after the "
+          f"other in {r0['restore_s']:.2f} s; {r0['rows']} rows each on "
+          f"{r0['mesh']}")
+    print(f"{label}: the first step, two pods against phase 16's one device "
+          f"on the whole batch: loss {first['loss']:.6f} vs "
+          f"{one_step['loss']:.6f} ({d_loss:.2e} relative, tol "
+          f"{TOL_MESH_TRAIN_LOSS}), grad norm {first['grad_norm']:.5f} vs "
+          f"{one_step['grad_norm']:.5f} ({d_norm:.2e}, tol "
+          f"{TOL_MESH_TRAIN_NORM}); the ranks' losses equal: {same_loss}; "
+          f"params and AdamW state identical on both ranks after every "
+          f"step: {same}")
+    print(f"{label}: loss over {POD_STEPS} steps on one batch: "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"{label}: s per step {[round(t, 3) for t in times]} (the last "
+          f"profiled on rank 0; phase 16's one-device step "
+          f"{one_step['s_step']:.3f} s), {LM_BATCH * LM_SEQ / s_step:.0f} "
+          f"tokens/s at step 2; gradient all-reduce per step {ar} s "
+          f"({r0['all_reduces']} calls, "
+          f"{r0['all_reduce_bytes'] / 1e9:.2f} GB over {POD_STEPS} steps, "
+          f"gloo); peak device memory per process "
+          f"{[round(r['peak_gib'], 3) for r in res]} GiB; rank 0's profiled "
+          f"step {prof['wall_s']:.3f} s wall, device busy "
+          f"{busy if busy is None else round(busy, 4)} s, idle share "
+          f"{'not measured' if idle is None else round(idle, 3)}; on {card}")
+    ck = CK.Checkpointer(work / "ck")
+    t0 = time.perf_counter()
+    st, meta = ck.restore(device=dev)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    got = _checksums(torch, st)
+    del st
+    release(torch)
+    same_ck = got == r0["checksums"]
+    print(f"{label}: rank 0 saved step {meta['step']} in "
+          f"{r0['save_s']:.2f} s; restored onto one device in "
+          f"{t_restore:.2f} s: every leaf "
+          f"{'equals' if same_ck else 'DIFFERS FROM'} rank 0's bit for bit "
+          f"({len(got)} leaves)")
+    print(f"{label}: launches {counts}: decode_attention 0 and "
+          "flash_attention 0, as they must be (training decodes nothing, B4 "
+          "has no backward)")
+    print(f"{label}: readings " + json.dumps({
+        "s_per_step": round(s_step, 4),
+        "tokens_per_s": round(LM_BATCH * LM_SEQ / s_step, 1),
+        "all_reduce_s": ar, "peak_gib": [round(r["peak_gib"], 3)
+                                         for r in res],
+        "idle_share": None if idle is None else round(idle, 3),
+        "profiled_wall_s": round(prof["wall_s"], 4),
+        "pods_s": round(t_pods, 1)}))
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    check(d_loss <= TOL_MESH_TRAIN_LOSS and d_norm <= TOL_MESH_TRAIN_NORM,
+          f"{label}: two pods' step differs from one device's (loss "
+          f"{d_loss:.2e}, grad norm {d_norm:.2e})")
+    check(same and same_loss, f"{label}: the ranks' states differ")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: the loss on a repeated batch did not fall ({losses})")
+    check(same_ck, f"{label}: the one-device restore differs from rank 0's "
+          "state")
+    check(counts["flash_attention"] == 0 and
+          counts["decode_attention"] == 0, f"{label}: an attention kernel "
+          f"launched ({counts})")
+    return {"multihost train": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the examples' port counterparts
+# ---------------------------------------------------------------------------
+
+EX_TRAIN_STEPS, EX_TRAIN_RESUME = 60, 80
+
+
+def phase_examples(torch, np, args, card, dev):
+    """18: ``examples/{quickstart,storinfer_serve,train_small}_torch.py``
+    called in process on the card: the quickstart's hit rate equal to the
+    same run's on the CPU and B1 launched; the serve example launching B1,
+    B3 and B4 and reporting request 1 cancelled; the train example for
+    ``EX_TRAIN_STEPS`` steps, then resumed to ``EX_TRAIN_RESUME`` from its
+    checkpoint, the loss falling."""
+    from repro_torch.kernels import ops
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch
+    import storinfer_serve_torch
+    import train_small_torch
+
+    label = "examples"
+    release(torch)
+    out = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    qs = quickstart_torch.main(["--device", "cuda"])
+    t_qs = time.perf_counter() - t0
+    out["examples quickstart"] = ops.launch_counts()
+    qs_cpu = quickstart_torch.main(["--device", "cpu"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sv = storinfer_serve_torch.main(["--device", "cuda"])
+    t_sv = time.perf_counter() - t0
+    out["examples serve"] = c_sv = ops.launch_counts()
+    work = ROOT / "build" / "chip_smoke" / "train_small"
+    shutil.rmtree(work, ignore_errors=True)
+    base = ["--device", "cuda", "--ckpt", str(work)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = train_small_torch.main(base + ["--steps", str(EX_TRAIN_STEPS)])
+    t_tr = time.perf_counter() - t0
+    tr2 = train_small_torch.main(base + ["--steps", str(EX_TRAIN_RESUME),
+                                         "--resume"])
+    out["examples train"] = ops.launch_counts()
+    shutil.rmtree(work, ignore_errors=True)
+    losses = tr["losses"]
+    falls = bool(np.mean(losses[-5:]) < np.mean(losses[:5]))
+    print(f"{label}: quickstart_torch on cuda {t_qs:.1f} s: hit rate "
+          f"{qs['hit_rate']:.3f} (the same run on the CPU "
+          f"{qs_cpu['hit_rate']:.3f}), {qs['index_tier']} index, launches "
+          f"{out['examples quickstart']}")
+    print(f"{label}: storinfer_serve_torch on cuda {t_sv:.1f} s: query hits "
+          f"{sv['query']}, scheduler (cancelled, tokens) {sv['scheduler']}, "
+          f"serve (hit, cancelled) {sv['serve']}, launches {c_sv}")
+    print(f"{label}: train_small_torch on cuda: {EX_TRAIN_STEPS} steps in "
+          f"{t_tr:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; resumed "
+          f"at step {tr2['start']} to {EX_TRAIN_RESUME}, loss "
+          f"{tr2['losses'][0]:.4f} -> {tr2['losses'][-1]:.4f}; launches "
+          f"{out['examples train']} on {card}")
+    check(qs["hit_rate"] == qs_cpu["hit_rate"] and qs["generated"] ==
+          qs_cpu["generated"], f"{label}: the quickstart on the card "
+          f"differs from the CPU ({qs} vs {qs_cpu})")
+    check(out["examples quickstart"]["mips_topk"] > 0,
+          f"{label}: the quickstart launched no B1")
+    check(all(c_sv[k] > 0 for k in ("mips_topk", "decode_attention",
+                                    "flash_attention")),
+          f"{label}: the serve example skipped a kernel ({c_sv})")
+    check(sv["scheduler"][1][0] and not any(
+        c for i, (c, _) in enumerate(sv["scheduler"]) if i != 1),
+        f"{label}: request 1 was not the one cancelled ({sv['scheduler']})")
+    check(falls and all(np.isfinite(losses + tr2["losses"])),
+          f"{label}: the train example's loss did not fall ({losses})")
+    check(tr2["start"] == EX_TRAIN_STEPS and len(tr2["losses"]) ==
+          EX_TRAIN_RESUME - EX_TRAIN_STEPS and
+          max(tr2["losses"]) < losses[0],
+          f"{label}: the train example did not resume ({tr2})")
+    return out
 
 
 def _tree_to(tree, device):
@@ -2794,7 +3195,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds every input: store, weights, queries")
+    ap.add_argument("--pod-job", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-rank", type=int, default=0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.pod_job:             # one of phase 17's pod processes
+        return pod_worker(args.pod_job, args.pod_rank)
     t_start = time.perf_counter()
 
     # -- phase 1: device -----------------------------------------------------
@@ -2887,8 +3293,21 @@ def main():
 
     # -- phase 16: training on a mesh of four shards (phase 14's state) ------
     t16 = time.perf_counter()
-    counts.update(phase_mesh_train(torch, np, args, card, corpus, dev))
+    c16, one_step = phase_mesh_train(torch, np, args, card, corpus, dev)
+    counts.update(c16)
     print(f"mesh train: phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    # -- phase 17: two pods, one process each, on the card (phase 14's
+    #    state, phase 16's one-device step) -----------------------------------
+    t17 = time.perf_counter()
+    counts.update(phase_multihost_train(torch, np, args, card, corpus, dev,
+                                        one_step))
+    print(f"multihost train: phase 17 took {time.perf_counter() - t17:.1f} s")
+
+    # -- phase 18: the examples' port counterparts on the card ---------------
+    t18 = time.perf_counter()
+    counts.update(phase_examples(torch, np, args, card, dev))
+    print(f"examples: phase 18 took {time.perf_counter() - t18:.1f} s")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

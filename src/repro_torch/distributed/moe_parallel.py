@@ -44,9 +44,16 @@ def moe_ffn_ep(cfg, p, x, *, mesh, ep_axis="model", batch_axes=("data",)):
                          f"and S ({S}) divisible by it")
     bspec = _batch_spec(mesh, batch_axes, B)
     xs = shard(x, (bspec, ep_axis), mesh)
-    y, aux = moe_ffn_ep_sharded(cfg, p, xs, mesh=mesh, ep_axis=ep_axis,
-                                batch_axes=batch_axes)
-    return y.with_spec((bspec, ep_axis)).full(x.device), aux.to(x.device)
+    y, (me, fe) = moe_ffn_ep_sharded(cfg, p, xs, mesh=mesh,
+                                     ep_axis=ep_axis, batch_axes=batch_axes)
+    return y.with_spec((bspec, ep_axis)).full(x.device), \
+        load_balance_aux(E, me, fe).to(x.device)
+
+
+def load_balance_aux(E, me, fe):
+    """The load-balance aux loss from the per-expert mean router
+    probability ``me`` and assignment fraction ``fe``: E * sum(me * fe)."""
+    return E * torch.sum(me * fe)
 
 
 def moe_ffn_ep_sharded(cfg, p, xs, *, mesh, ep_axis="model",
@@ -54,9 +61,12 @@ def moe_ffn_ep_sharded(cfg, p, xs, *, mesh, ep_axis="model",
     """``moe_ffn_ep`` on tokens already laid out: ``xs`` a ``Sharded`` whose
     shard at each position is its (B_local, S_local, d) block (batch rows
     over the batch axes where they split, the sequence over ``ep_axis``).
-    Returns (y, a ``Sharded`` of the same layout, the aux loss on the first
-    position's device). ``p`` leaves may be ``Sharded`` (the experts split
-    over ``ep_axis`` on their leading dim, the rest replicated)."""
+    Returns (y, a ``Sharded`` of the same layout, (me, fe)): the
+    per-expert mean router probability and assignment fraction over the
+    mesh's tokens, on the first position's device, from which
+    ``load_balance_aux`` makes the aux loss. ``p`` leaves may be
+    ``Sharded`` (the experts split over ``ep_axis`` on their leading dim,
+    the rest replicated)."""
     E, K = cfg.n_experts, cfg.experts_per_tok
     ep = mesh.shape[ep_axis]
     d = xs.shards.flat[0].shape[-1]
@@ -111,9 +121,9 @@ def moe_ffn_ep_sharded(cfg, p, xs, *, mesh, ep_axis="model",
         return y.reshape(Bl, Sl, d)
 
     y = smap(combine, mesh, out, xs, w, slot, valid, p.get("shared"))
-    # the load-balance aux from GLOBAL statistics: pmean the per-expert
-    # mean prob and assignment fraction first, then take the product
+    # the load-balance aux reads GLOBAL statistics: the per-expert mean
+    # prob and assignment fraction pmean'd over the mesh (a caller that
+    # trains over pods averages them over the pods too)
     axes = b_axes + (ep_axis,)
     me, fe = pmean(me, axes), pmean(fe, axes)
-    aux = E * torch.sum(me.shards.flat[0] * fe.shards.flat[0])
-    return y, aux
+    return y, (me.shards.flat[0], fe.shards.flat[0])

@@ -8,8 +8,9 @@ are all-gathered and a final top-k runs over the shards x k candidates.
 Traffic per query: shards * k * 8 bytes, independent of store size N.
 
 The float local scan is the ``mips_topk`` kernel (``ops.mips_topk``: the
-CUDA kernel on a card, its plain version on the CPU), which is what the
-reference's ``local_scan`` hook is for. Quantized stores shard int8
+CUDA kernel on a card, its plain version on the CPU) unless the caller's
+``local_scan(q, e, k) -> (vals, ids)`` hook replaces it, as the
+reference's hook does. Quantized stores shard int8
 values + per-row f32 scales (``scales=``): the local scan scores f32
 queries against the int8 shard (a plain ``torch.matmul`` of the widened
 values, exact, as the reference's mixed ``dot_general``), multiplies by
@@ -36,7 +37,7 @@ NEG = -1e30
 
 
 def sharded_mips_topk(queries, emb, k, *, mesh, shard_axis="model",
-                      scales=None, n_real=None):
+                      local_scan=None, scales=None, n_real=None):
     """queries: (Q, D) tensor, replicated; emb: (N, D) rows over
     ``shard_axis`` (a ``Sharded`` with spec ``(shard_axis,)``, or a tensor
     sharded here).
@@ -44,13 +45,16 @@ def sharded_mips_topk(queries, emb, k, *, mesh, shard_axis="model",
     Returns (scores (Q, k) f32, GLOBAL row ids (Q, k) int32) on the mesh's
     first device. ``scales`` ((N,) f32, sharded like ``emb``) switches to
     the int8 shard scan; ``n_real`` masks rows with a global id at or past
-    it on either path."""
+    it on either path. ``local_scan(q, e, k) -> (vals, shard-local ids)``
+    replaces the float path's ``ops.mips_topk``; it sees only the shard's
+    rows below ``n_real``."""
     k = int(k)
     if not isinstance(emb, Sharded):
         emb = shard(emb, (shard_axis,), mesh)
     if scales is not None and not isinstance(scales, Sharded):
         scales = shard(scales, (shard_axis,), mesh)
     q = queries.float()
+    scan = local_scan or ops.mips_topk
 
     if scales is not None:
         def local(ctx, q, e, sc):
@@ -69,13 +73,13 @@ def sharded_mips_topk(queries, emb, k, *, mesh, shard_axis="model",
             offset = ctx.index(shard_axis) * Ml
             n = Ml if n_real is None else max(0, min(Ml, n_real - offset))
             if n >= k:
-                v, i = ops.mips_topk(q, e[:n], k)
+                v, i = scan(q, e[:n], k)
             else:       # fewer real rows than k: the masked rows follow
                 v = q.new_full((q.shape[0], k), NEG)
                 i = torch.arange(k, dtype=torch.int32,
                                  device=q.device).repeat(q.shape[0], 1)
                 if n:
-                    v[:, :n], i[:, :n] = ops.mips_topk(q, e[:n], n)
+                    v[:, :n], i[:, :n] = scan(q, e[:n], n)
             return v, i + offset
 
         v, i = smap(local, mesh, q, emb)

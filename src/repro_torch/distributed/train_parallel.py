@@ -42,6 +42,10 @@ its spec does not name (``psum_replicas``). The loss is normalised over
 the valid labels of the whole (micro)batch and taken once per batch
 block (at the first position of every other axis), so that the backward
 starts from one scalar and no gradient counts a ``model`` replica twice.
+Inside a pod group (``distributed/multihost.py``) the batch is this pod's
+rows of the global microbatch: the valid-label count, the cross-entropy
+sum and the MoE routing statistics are summed over pods
+(``multihost.pod_sum``), so the loss is the global microbatch's.
 """
 from __future__ import annotations
 
@@ -52,7 +56,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.moe_parallel import moe_ffn_ep_sharded
+from repro_torch.distributed.moe_parallel import (load_balance_aux,
+                                                  moe_ffn_ep_sharded)
+from repro_torch.distributed.multihost import pod_mean, pod_sum
 from repro_torch.distributed.sharding import (Sharded, _axes, _coord,
                                               all_gather, batch_shardings,
                                               elementwise, parts, place, pmax,
@@ -154,7 +160,7 @@ def _gqa_local(cfg, run, ctx, p, x, positions, mrope, kv_x, *, hq, rep,
     k = Lyr.dense(p["wk"], src).reshape(B, src.shape[1], -1, hd)
     v = Lyr.dense(p["wv"], src).reshape(B, src.shape[1], -1, hd)
     if kv_x is None:
-        q, k = M._rope_q_k(cfg, p, q, k, positions, mrope)
+        q, k = Lyr.rope_q_k(cfg, p, q, k, positions, mrope)
     if rep:
         G = cfg.n_heads // cfg.n_kv_heads
         i = ctx.index(AX) * hq
@@ -240,11 +246,12 @@ def _moe(plan, p, ln, x):
             pl["shared"] = _use_tree(p["shared"], lambda *_: False)
         h = smap(lambda ctx, ln, x: Lyr.rmsnorm(ln, x, cfg.norm_eps), mesh,
                  ln, x)
-        y, aux = moe_ffn_ep_sharded(cfg, pl, h if plan.sp else
-                                    _chunk(plan, h), mesh=mesh,
-                                    ep_axis=run.ep_axis,
-                                    batch_axes=run.batch_axes)
-        return (y if plan.sp or plan.n == 1 else all_gather(y, AX, 1)), aux
+        y, (me, fe) = moe_ffn_ep_sharded(cfg, pl, h if plan.sp else
+                                         _chunk(plan, h), mesh=mesh,
+                                         ep_axis=run.ep_axis,
+                                         batch_axes=run.batch_axes)
+        return (y if plan.sp or plan.n == 1 else all_gather(y, AX, 1)), \
+            load_balance_aux(cfg.n_experts, pod_mean(me), pod_mean(fe))
     if run.moe_impl not in ("einsum", "scatter"):
         raise ValueError(f"moe_impl must be 'scatter', 'einsum' or 'ep', "
                          f"got {run.moe_impl!r}")
@@ -263,7 +270,8 @@ def _moe(plan, p, ln, x):
 
     y, me, fe = smap(local, mesh, pl, ln, _full(plan, x))
     me, fe = pmean(me, mesh.axis_names), pmean(fe, mesh.axis_names)
-    aux = cfg.n_experts * torch.sum(me.shards.flat[0] * fe.shards.flat[0])
+    aux = load_balance_aux(cfg.n_experts, pod_mean(me.shards.flat[0]),
+                           pod_mean(fe.shards.flat[0]))
     return _residual(plan, y, partial=False), aux
 
 
@@ -464,9 +472,9 @@ def lm_loss(cfg, params, batch, run):
     logits, vs = _logits(plan, params, x)
     sums = _nll_sums(plan, logits, vs, loc["labels"])
     dev = mesh.devices.flat[0]
-    ce = sum(sums.shards[pos].to(dev) for pos in _owners(
-        mesh, placement["tokens"].spec[0]))
-    n_valid = (batch["labels"] >= 0).sum().to(dev).float()
+    ce = pod_sum(sum(sums.shards[pos].to(dev) for pos in _owners(
+        mesh, placement["tokens"].spec[0])))
+    n_valid = pod_sum((batch["labels"] >= 0).sum().to(dev).float())
     ce = ce / torch.clamp(n_valid, min=1.0)
     return ce + run.aux_coef * aux, {"loss": ce, "moe_aux": aux}
 

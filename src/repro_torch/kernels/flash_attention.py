@@ -14,14 +14,15 @@ exact, since an output column is the probabilities times that one value
 column.
 
 ``flash_attention_plain`` is the naive math the reference runs for the
-same call sites (``models/layers.py:gqa_scores_softmax_out`` with the
-causal mask at offset 0): f32 scores, f32 softmax, probabilities cast to
-v's dtype before P.V. It is the CPU path of ``ops.flash_attention`` and
-what the kernel is held against on the card. With f32 inputs the two agree
-to summation order and the kernel's 3xTF32 products (about 2^-21 relative
-each); with bf16 inputs the plain version rounds the scores to bf16 (the
-einsum's output dtype) and the normalised probability, the kernel neither
-the scores and only the unnormalised ``exp(s - m)``.
+same call sites (its ``models/layers.py:gqa_scores_softmax_out``, here
+``kernels/ref.py``'s, with the causal mask at offset 0): f32 scores, f32
+softmax, probabilities cast to v's dtype before P.V. It is the CPU path of
+``ops.flash_attention`` and what the kernel is held against on the card.
+With f32 inputs the two agree to summation order and the kernel's 3xTF32
+products (about 2^-21 relative each); with bf16 inputs the plain version
+rounds the scores to bf16 (the einsum's output dtype) and the normalised
+probability, the kernel neither the scores and only the unnormalised
+``exp(s - m)``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ import ctypes
 
 import torch
 
-NEG = -1e30
+from repro_torch.kernels.ref import causal_mask, gqa_scores_softmax_out
+
 MAX_HEAD_DIM = 256
 
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
@@ -41,18 +43,9 @@ def flash_attention_plain(q, k, v, causal: bool = True):
     """q (B,S,Hq,D), k (B,T,Hkv,D), v (B,T,Hkv,Dv) -> (B,S,Hq,Dv) in v's
     dtype; query row i attends key j when j < T and, if ``causal``,
     j <= i."""
-    B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(q.dtype)).float()
-    s = s * D ** -0.5
-    if causal:
-        keep = torch.arange(T, device=q.device)[None, :] <= \
-            torch.arange(S, device=q.device)[:, None]
-        s = s.masked_fill(~keep, NEG)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
-    return o.reshape(B, S, Hq, v.shape[-1])
+    mask = causal_mask(q.shape[1], k.shape[1], 0, q.device) if causal \
+        else None
+    return gqa_scores_softmax_out(q, k, v, mask, q.shape[-1] ** -0.5)
 
 
 def flash_attention_cuda(lib, q, k, v, causal: bool = True):

@@ -1,6 +1,8 @@
 """Oracles for every kernel of the port: the numpy bit-for-bit targets of
-the MIPS top-k pair (copied from the JAX package's ``kernels/ref.py``) and
-torch versions of the attention and fp32 MIPS oracles."""
+the MIPS top-k pair (copied from the JAX package's ``kernels/ref.py``),
+torch versions of the attention and fp32 MIPS oracles, and the plain
+grouped-query attention math (``gqa_scores_softmax_out``, ``causal_mask``)
+that the models' naive attention runs and B4 is held against."""
 from __future__ import annotations
 
 import numpy as np
@@ -69,3 +71,27 @@ def attention_ref(q, k, v, *, causal=True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p.to(v.dtype), v)
     return o.reshape(B, Hq, S, D)
+
+
+def gqa_scores_softmax_out(q, k, v, mask, scale):
+    """q (B,S,Hq,D), k and v (B,T,Hkv,D[v]); ``mask`` a bool broadcastable
+    to (B,Hkv,G,S,T) (``causal_mask``'s (1,1,1,S,T)) or None. Returns
+    (B,S,Hq,Dv) in v's dtype: scores and softmax in f32, the
+    probabilities cast to v's dtype before P.V, as in the reference."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(q.dtype)).float() * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, -1e30)
+    probs = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkv->bskgv", probs.to(v.dtype), v)
+    return out.reshape(B, S, Hq, v.shape[-1])
+
+
+def causal_mask(S, T, offset, device=None):
+    """Query i (global position ``offset + i``) may attend key j iff
+    j <= offset + i: a (1,1,1,S,T) bool."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    return (j <= i + offset)[None, None, None]

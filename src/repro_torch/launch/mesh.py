@@ -9,7 +9,9 @@ the shard list), as JAX's single controller does. ``AbstractMesh`` holds
 the axis names and sizes alone, which is all the sharding rules read.
 
 Axis roles (as in the reference):
-  pod   — outermost data parallelism (across hosts: not driven here)
+  pod   — outermost data parallelism: one process per host in a
+          ``torch.distributed`` group (``distributed/multihost.py``), or
+          an axis of a one-controller mesh
   data  — batch sharding, FSDP
   model — tensor parallel (heads, MLP, vocab), expert parallel (MoE),
           KV-sequence parallel (seq-sharded decode), index-row parallel
@@ -29,6 +31,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import multihost
 
 
 class AbstractMesh:
@@ -106,26 +110,29 @@ def make_local_mesh(model: int = 1, data: int = 1,
                      _distinct(device, data * model))
 
 
-MULTI_HOST = ("ROADMAP A14, multi-host training (torch.distributed, "
-              "NCCL): the pod axis and --multipod")
-
-
 def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
     """The training mesh of one node: (data 1, model n) over its n visible
     cards (or ``devices``, which may repeat one), the counterpart of a
-    pod's 16-chip model axis on one NVLink node. The reference's
-    ``multi_pod`` mesh adds a ``pod`` axis across hosts, which one
-    controller cannot drive: it raises ``NotImplementedError`` naming the
-    ROADMAP item that ports it."""
-    if multi_pod:
-        raise NotImplementedError(
-            f"the multi-pod mesh (pod 2, data 16, model 16) spans hosts; "
-            f"one process drives one node's cards: {MULTI_HOST}")
+    pod's 16-chip model axis on one NVLink node.
+
+    ``multi_pod`` (the reference's (pod 2, data 16, model 16) across
+    hosts): inside a pod group (``distributed/multihost.py``, one process
+    per host) this is the rank's local (data 1, model n) mesh, and the
+    ``pod`` axis, of the group's size, is the group itself. In one
+    process it is the (pod 2, data 1, model n / 2) mesh on one controller
+    over the devices, as the reference's dry run builds its mesh on one
+    host."""
     if devices is None:
         devices = _distinct("cuda", torch.cuda.device_count())
     if not devices:
         raise ValueError("no CUDA device is visible for the training mesh; "
                          "list the devices (e.g. devices=['cpu'])")
+    if multi_pod and not multihost.active():
+        if len(devices) % 2:
+            raise ValueError(f"a (pod 2, data 1, model n) mesh needs an even "
+                             f"number of devices, got {len(devices)}")
+        return make_mesh((2, 1, len(devices) // 2), ("pod", "data", "model"),
+                         devices)
     return make_mesh((1, len(devices)), ("data", "model"), devices)
 
 

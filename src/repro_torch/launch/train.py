@@ -16,8 +16,24 @@ state placed by the sharding rules:
 
 ``--mesh D,M`` lays a (data D, model M) mesh over ``--device`` repeated
 (the tests run ``--device cpu --mesh 2,4``; ``--mesh 2,2`` puts four
-shards on one card). ``--multipod`` (the reference's pod axis, across
-hosts) raises: one process drives one node (ROADMAP A14).
+shards on one card).
+
+``--multipod`` trains over the reference's ``pod`` axis with one process
+per pod (``distributed/multihost.py``): under torchrun (``RANK``,
+``WORLD_SIZE`` set) each process joins the group; otherwise ``--pods P``
+(default 2) starts P processes of this launcher on this host, joined by a
+``file://`` rendezvous, and waits for them. The pods of a host split
+its n cards in rank order, pod p taking cards [p*n/P, (p+1)*n/P) as the
+one-controller (pod, data, model) mesh does; each process builds its
+``--mesh D,M`` local mesh over its cards (by default a (data 1, model
+n/P) mesh), takes rows ``[p::P]`` of each global batch, and sums its
+gradients over the pods. ``--backend`` is ``nccl`` on ``cuda`` and
+``gloo`` on ``cpu`` unless given; a backend that cannot start raises, and
+so do pods that would share a card under NCCL, which refuses two ranks on
+one card (more pods than cards take ``--backend gloo``). Rank 0 prints and
+writes the checkpoints; ``--smoke`` keeps the reduced config and batch:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --smoke --multipod --pods 2 --mesh 1,2 --device cpu --steps 3
 
 Checkpoints are written asynchronously every ``--ckpt-every`` steps in the
 reference's mesh-agnostic layout, and a run restarted with the same
@@ -26,11 +42,17 @@ whatever mesh wrote it.
 """
 import argparse
 import dataclasses
+import os
+import shutil
+import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
 from repro_torch.configs import SHAPES, get_config, reduced
+from repro_torch.distributed import multihost
 from repro_torch.distributed import sharding as Sh
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
@@ -42,14 +64,38 @@ from repro_torch.training import optimizer as O
 from repro_torch.training import train as T
 
 
-def _mesh(args):
+def _mesh(args, backend=None):
+    """The mesh this process drives (the pod axis, if any, is its
+    group): a pod's mesh lies on its own cards (``multihost.pod_cards``)."""
+    devices = None if torch.device(args.device).type == "cuda" else \
+        [args.device]
+    if args.multipod:
+        devices = multihost.local_devices(torch.device(args.device).type,
+                                          backend)
     if args.mesh:
         shape = tuple(int(s) for s in args.mesh.split(","))
         n = shape[0] * shape[1]
-        return make_mesh(shape, ("data", "model"), [args.device] * n)
-    if torch.device(args.device).type == "cuda":
-        return make_production_mesh()
-    return make_production_mesh(devices=[args.device])
+        return make_mesh(shape, ("data", "model"),
+                         ((devices or [args.device]) * n)[:n])
+    return make_production_mesh(multi_pod=args.multipod, devices=devices)
+
+
+def _spawn_pods(args, argv):
+    """Start ``--pods`` processes of this launcher as the ranks of a
+    ``file://`` rendezvous and wait for them (``multihost.spawn``); rank
+    0's output is printed."""
+    tmp = Path(tempfile.mkdtemp(prefix="pods-"))
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    try:
+        logs = multihost.spawn(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv,
+             "--init-method", f"file://{tmp / 'rendezvous'}"], args.pods,
+            None, tmp, env=env)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(logs[0], end="")
 
 
 def main(argv=None):
@@ -61,7 +107,16 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--accum", type=int, default=None)
-    ap.add_argument("--multipod", action="store_true")
+    ap.add_argument("--multipod", action="store_true",
+                    help="one process per pod, gradients summed over them")
+    ap.add_argument("--pods", type=int, default=2,
+                    help="--multipod outside torchrun: processes to start")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the pod group's backend (nccl on cuda, gloo on "
+                    "cpu by default)")
+    ap.add_argument("--init-method", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--mesh", default=None,
                     help="D,M: a (data, model) mesh over --device repeated")
     ap.add_argument("--ckpt", default=None)
@@ -69,29 +124,52 @@ def main(argv=None):
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
 
     cfg = get_config(args.arch)
+    pods, backend = 1, None
     if args.multipod:
-        make_production_mesh(multi_pod=True)      # raises: ROADMAP A14
+        kind = torch.device(args.device).type
+        backend = args.backend or ("nccl" if kind == "cuda" else "gloo")
+        if backend == "nccl" and kind != "cuda":
+            raise ValueError(f"--backend nccl needs --device cuda, got "
+                             f"{args.device!r}: pass --backend gloo")
+        if args.init_method is None and "RANK" not in os.environ:
+            if kind == "cuda":      # the pods' cards, checked before spawning
+                multihost.pod_cards(torch.cuda.device_count(), 0, args.pods,
+                                    backend)
+            return _spawn_pods(args, argv)
+        multihost.init(backend, args.init_method, args.pod_rank,
+                       None if args.init_method is None else args.pods)
+        pods = multihost.n_pods()
     if args.smoke:
         cfg = reduced(cfg)
+    if args.smoke and not args.multipod:
         B, S = args.batch or 4, args.seq or 64
         mesh = None
         run = M.RunCfg(attn_impl="naive", remat=False)
         accum = args.accum or 1
     else:
-        mesh = _mesh(args)
-        B = args.batch or SHAPES["train_4k"].global_batch
-        S = args.seq or SHAPES["train_4k"].seq_len
+        mesh = _mesh(args, backend)
+        B = args.batch or (4 if args.smoke else
+                           SHAPES["train_4k"].global_batch)
+        S = args.seq or (64 if args.smoke else SHAPES["train_4k"].seq_len)
+        if B % pods:
+            raise ValueError(f"a global batch of {B} rows does not split "
+                             f"over {pods} pods")
         shape = dataclasses.replace(SHAPES["train_4k"], seq_len=S,
-                                    global_batch=B)
+                                    global_batch=B // pods)
         run = SP.train_runcfg(args.arch, cfg, shape, mesh)
-        accum = args.accum or SP.train_accum(args.arch, mesh, B)
+        accum = args.accum or SP.train_accum(args.arch, mesh, B // pods)
     dev = mesh.devices.flat[0] if mesh is not None else \
         torch.device(args.device)
-    print(f"train {cfg.name}: params~{cfg.param_count() / 1e9:.2f}B "
-          f"batch={B}x{S} accum={accum} "
-          f"mesh={mesh and dict(mesh.shape)} device={dev}")
+    shape_of = mesh and dict(mesh.shape)
+    if pods > 1:
+        shape_of = dict(pod=pods, **shape_of)
+    rank0 = multihost.pod_index() == 0
+    log = print if rank0 else (lambda *a, **k: None)
+    log(f"train {cfg.name}: params~{cfg.param_count() / 1e9:.2f}B "
+        f"batch={B}x{S} accum={accum} mesh={shape_of} device={dev}")
 
     compress = None
     if args.compress:
@@ -128,21 +206,29 @@ def main(argv=None):
         if args.compress and "grad_err" not in opt:
             opt["grad_err"] = GC.init_error_state(params)
         start = meta["step"]
-        print(f"resumed at step {start}")
+        log(f"resumed at step {start}")
 
     t0 = time.time()
     for i in range(start, args.steps):
         b = {k: torch.from_numpy(v).long().to(dev)
-             for k, v in data.batch(i).items()}
+             for k, v in multihost.pod_rows(data.batch(i)).items()}
         params, opt, m = step_fn(params, opt, b)
         if (i + 1) % 10 == 0 or i == start:
-            print(f"step {i + 1} loss={float(m['loss']):.4f} "
-                  f"({(time.time() - t0) / (i - start + 1):.2f}s/step)")
-        if ck and (i + 1) % args.ckpt_every == 0:
+            log(f"step {i + 1} loss={float(m['loss']):.4f} "
+                f"({(time.time() - t0) / (i - start + 1):.2f}s/step)")
+        if ck and rank0 and (i + 1) % args.ckpt_every == 0:
             ck.save(i + 1, {"params": params, "opt": opt})
-    if ck:
+    if ck and rank0:
         ck.save(args.steps, {"params": params, "opt": opt}, blocking=True)
-    print("done")
+    if pods > 1:
+        same = multihost.replicas_identical({"params": params, "opt": opt})
+        log(f"pods={pods} replicas identical={same} all-reduce "
+            f"{multihost.stats['all_reduce_s']:.2f}s")
+        multihost.barrier()
+        multihost.shutdown()
+        if not same:
+            raise RuntimeError("the pods' params diverged")
+    log("done")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,12 @@
 """Core layer primitives in PyTorch: init helpers, norms (and Mamba2's
 gated norm), MLPs, RoPE, M-RoPE and sinusoidal positions, attention and
-cross-attention params — the subset of the JAX package's
-``models/layers.py`` that the ported families use, as plain functions
-over dicts of tensors.
+cross-attention params, and the reference's plain attention math
+(``gqa_scores_softmax_out`` and ``causal_mask``, which live beside the
+kernels' oracles in ``kernels/ref.py``, ``attention``,
+``cross_attention``) — the JAX package's ``models/layers.py`` as plain
+functions over dicts of tensors. The model runs its attention through
+``models/model.py`` (the kernels on a card); these are the plain math
+that the kernels' CPU versions and the model's ``"naive"`` path share.
 
 Weights keep the reference's layout (``dense`` weights are ``(d_in,
 d_out)``), so ``models/convert.py`` copies a reference pytree without
@@ -16,6 +20,9 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the plain attention math, shared with B4's plain version
+from repro_torch.kernels.ref import causal_mask, gqa_scores_softmax_out
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -154,8 +161,8 @@ def apply_mrope(x, positions, theta, sections):
 
 
 # ---------------------------------------------------------------------------
-# Attention params (the attention itself runs the kernels in
-# repro_torch.kernels, or their plain versions on CPU)
+# Attention: params, projections and the reference's plain math (the
+# model's attention runs the kernels in repro_torch.kernels on a card)
 # ---------------------------------------------------------------------------
 
 
@@ -179,3 +186,86 @@ def cross_attention_init(gen, cfg, dtype, device):
     layout (queries from the decoder, keys and values from the encoder;
     no RoPE, no mask)."""
     return attention_init(gen, cfg, dtype, device)
+
+
+def rope_q_k(cfg, p, q, k, positions, mrope_positions=None):
+    """qk-norm (when the config has it), then RoPE or M-RoPE on q and k
+    (B, S, H, D)."""
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if cfg.rope_kind == "standard":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        if mrope_positions is None:
+            raise ValueError(f"{cfg.name}: M-RoPE needs mrope_positions "
+                             "(3, B, S)")
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+    return q, k
+
+
+def qkv(cfg, p, x, positions, mrope_positions=None):
+    """The self-attention's q (B,S,Hq,D), k and v (B,S,Hkv,D) of ``x``,
+    q and k normed and roped."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q, k = rope_q_k(cfg, p, q, k, positions, mrope_positions)
+    return q, k, v
+
+
+def cross_qkv(cfg, p, x, enc_out):
+    """The cross-attention's q (B,S,Hq,D) from the decoder and k, v
+    (B,Te,Hkv,D) from the encoder output (no RoPE)."""
+    B, S, _ = x.shape
+    Te = enc_out.shape[1]
+    hd = cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    k = dense(p["wk"], enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def attention(cfg, p, x, positions, *, mask_offset=0, kv_cache=None,
+              cache_len=None, mrope_positions=None):
+    """The reference's plain attention. With ``kv_cache`` None (prefill,
+    training): causal over ``x``'s own tokens at ``mask_offset``; returns
+    (out, {"k", "v"} of these tokens). With ``kv_cache`` ({"k", "v"}
+    (B,M,Hkv,D)): decode, the new entries written at ``cache_len``
+    (clamped to the last slot, as ``dynamic_update_slice`` clamps) in
+    place, attending [0, cache_len]; returns (out, the cache). The
+    reference's decode branch raises (its mask has a rank too many); this
+    one computes what ``models/model.py:gqa_decode`` computes."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = qkv(cfg, p, x, positions, mrope_positions)
+    if kv_cache is None:
+        out = gqa_scores_softmax_out(
+            q, k, v, causal_mask(S, S, mask_offset, x.device), hd ** -0.5)
+        new_kv = {"k": k, "v": v}
+    else:
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        T = kc.shape[1]
+        pos = min(int(cache_len), T - S)
+        kc[:, pos:pos + S] = k.to(kc.dtype)
+        vc[:, pos:pos + S] = v.to(vc.dtype)
+        mask = (torch.arange(T, device=x.device) <= int(cache_len))
+        out = gqa_scores_softmax_out(q, kc, vc, mask, hd ** -0.5)
+        new_kv = kv_cache
+    return dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), new_kv
+
+
+def cross_attention(cfg, p, x, enc_out):
+    """Decoder cross-attention over the encoder output (no mask, no
+    RoPE)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = cross_qkv(cfg, p, x, enc_out)
+    out = gqa_scores_softmax_out(q, k, v, None, hd ** -0.5)
+    return dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd))

@@ -7,6 +7,12 @@ over precomputed frame embeddings, a decoder with cross-attention).
 
 Conventions
 -----------
+* The model API takes the reference's positional forms: ``prefill(cfg,
+  params, batch, run, max_len)`` (``batch`` the reference's dict, or a
+  token tensor), ``decode_step(cfg, params, token, cache, cache_len, run,
+  mrope_positions)``, ``serve_step``, ``lm_logits(cfg, run, params, x)``.
+  The layer-level functions take ``run`` as a keyword instead of the
+  reference's second argument.
 * Params are a dict: ``{"embed": {"w"}, "final_norm": {"scale"},
   "blocks": [one dict per layer]}`` with the reference's per-layer keys
   and shapes, plus ``"dense0"`` (deepseek's leading dense layers, a list
@@ -22,8 +28,10 @@ Conventions
   require grad. ``"naive"`` is that plain math on any device, under
   autograd; ``"blockwise"`` (the default, as in the reference) is the
   tiled attention of ``models/blockwise.py`` with a hand-written flash
-  backward, what training runs. ``prefill`` always runs the kernel, as
-  the serving path; single-token GQA decode (self- and cross-attention)
+  backward, what training runs. ``prefill``'s default ``run`` is
+  ``KERNEL`` (the serving path; the reference's default is
+  ``RunCfg()``, the same values); single-token GQA decode (self- and
+  cross-attention)
   runs the ``decode_attention`` kernel on CUDA and its plain version on
   the CPU, which are the naive attention the reference engine runs
   (``RunCfg(attn_impl="naive")``). MLA's absorbed decode (one latent head
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -71,6 +80,7 @@ from repro_torch.models import mla as Mla
 from repro_torch.models import moe as Moe
 from repro_torch.models import ssm as Ssm
 from repro_torch.models.blockwise import blockwise_gqa
+from repro_torch.models.convert import tree_leaves
 
 DECODE_SPLITS = 8      # split-KV chunks per decode_attention launch
 
@@ -209,24 +219,6 @@ def _layers(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-def _rope_q_k(cfg, p, q, k, positions, mrope_positions=None):
-    if cfg.qk_norm:
-        q = Lyr.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = Lyr.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if cfg.rope_kind == "standard":
-        q = Lyr.apply_rope(q, positions, cfg.rope_theta)
-        k = Lyr.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope_kind == "mrope":
-        if mrope_positions is None:
-            raise ValueError(f"{cfg.name}: M-RoPE needs mrope_positions "
-                             "(3, B, S)")
-        q = Lyr.apply_mrope(q, mrope_positions, cfg.rope_theta,
-                            cfg.mrope_sections)
-        k = Lyr.apply_mrope(k, mrope_positions, cfg.rope_theta,
-                            cfg.mrope_sections)
-    return q, k
-
-
 def _attend(q, k, v, causal, run):
     if run.attn_impl == "kernel":
         if torch.is_grad_enabled() and any(t.requires_grad
@@ -250,14 +242,9 @@ def gqa_fullseq(cfg, p, x, positions, *, causal=True, run=KERNEL,
     """Returns (out (B,S,d), {"k","v"}) for a full sequence: prefill,
     training, the encoders. ``run.attn_impl`` picks the attention."""
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = Lyr.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = Lyr.dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = Lyr.dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    q, k = _rope_q_k(cfg, p, q, k, positions, mrope_positions)
+    q, k, v = Lyr.qkv(cfg, p, x, positions, mrope_positions)
     out = _attend(q, k, v, causal, run)
-    return Lyr.dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), \
-        {"k": k, "v": v}
+    return Lyr.dense(p["wo"], out.reshape(B, S, -1)), {"k": k, "v": v}
 
 
 def mla_fullseq(cfg, p, x, positions, *, run=KERNEL):
@@ -266,17 +253,20 @@ def mla_fullseq(cfg, p, x, positions, *, run=KERNEL):
     q/k width, which is exact). Returns (out, {"ckv","krope"}): the cache
     stays compressed."""
     B, S, _ = x.shape
-    H, rd = cfg.n_heads, cfg.qk_rope_head_dim
-    qn, qr = Mla._project_q(cfg, p, x)
-    qr = Lyr.apply_rope(qr, positions, cfg.rope_theta)
-    ckv, krope = Mla._project_ckv(cfg, p, x, positions)
-    kn = torch.einsum("bsr,rhn->bshn", ckv, p["wuk"])
-    v = torch.einsum("bsr,rhv->bshv", ckv, p["wuv"])
-    q = torch.cat([qn, qr], dim=-1)                       # (B,S,H,nope+rd)
-    k = torch.cat([kn, krope.expand(B, S, H, rd)], dim=-1)
+    q, k, v, kv = Mla.expand(cfg, p, x, positions)
     out = _attend(q, k, v, True, run)
-    return Lyr.dense(p["wo"], out.reshape(B, S, H * cfg.v_head_dim)), \
-        {"ckv": ckv, "krope": krope[:, :, 0, :]}
+    return Lyr.dense(p["wo"], out.reshape(B, S, -1)), kv
+
+
+def attn_fullseq(cfg, p, x, positions, *, run=KERNEL, **kw):
+    """A layer's self-attention over a full sequence: MLA where the config
+    has it (which takes no ``mrope_positions`` and is always causal), else
+    GQA. Returns (out, this layer's cache entries)."""
+    if cfg.use_mla:
+        kw.pop("mrope_positions", None)
+        kw.pop("causal", None)
+        return mla_fullseq(cfg, p, x, positions, run=run, **kw)
+    return gqa_fullseq(cfg, p, x, positions, run=run, **kw)
 
 
 def cross_fullseq(cfg, p, x, enc_out, run=KERNEL):
@@ -285,14 +275,9 @@ def cross_fullseq(cfg, p, x, enc_out, run=KERNEL):
     Returns (out, {"xk","xv"}): the projected encoder keys and values,
     which the decode cache keeps."""
     B, S, _ = x.shape
-    Te = enc_out.shape[1]
-    hd = cfg.resolved_head_dim
-    q = Lyr.dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    xk = Lyr.dense(p["wk"], enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
-    xv = Lyr.dense(p["wv"], enc_out).reshape(B, Te, cfg.n_kv_heads, hd)
+    q, xk, xv = Lyr.cross_qkv(cfg, p, x, enc_out)
     out = _attend(q, xk, xv, False, run)
-    return Lyr.dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), \
-        {"xk": xk, "xv": xv}
+    return Lyr.dense(p["wo"], out.reshape(B, S, -1)), {"xk": xk, "xv": xv}
 
 
 # ---------------------------------------------------------------------------
@@ -342,15 +327,12 @@ def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None,
     over ``run.seq_axis``. Returns out (B,1,d)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    Hq = cfg.n_heads
     positions = torch.full((B, 1), cache_len, dtype=torch.long,
                            device=x.device)
-    q = Lyr.dense(p["wq"], x).reshape(B, 1, Hq, hd)
-    k = Lyr.dense(p["wk"], x).reshape(B, 1, Hkv, hd)
-    v = Lyr.dense(p["wv"], x).reshape(B, 1, Hkv, hd)
     if mrope_positions is None and cfg.rope_kind == "mrope":
         mrope_positions = positions[None].expand(3, B, 1)
-    q, k = _rope_q_k(cfg, p, q, k, positions, mrope_positions)
+    q, k, v = Lyr.qkv(cfg, p, x, positions, mrope_positions)
     if _seq_sharded(run):
         out, _, _ = gqa_decode_seq_sharded(
             q, k, v, kc, vc, cache_len, mesh=run.mesh, seq_axis=run.seq_axis,
@@ -386,47 +368,52 @@ def cross_decode(cfg, p, x, xk, xv):
 def mla_decode(cfg, p, x, ckv_c, krope_c, cache_len: int, live=None,
                run=RunCfg()):
     """Absorbed decode over the compressed cache ckv_c (B,M,r) and krope_c
-    (B,M,dr), written in place at ``cache_len`` as ``gqa_decode`` writes.
-    The products follow the reference's dtypes: a bf16 cache is widened
-    exactly against the f32 query, the probabilities and P.V are rounded
-    to the cache dtype."""
+    (B,M,dr), written in place at ``cache_len`` as ``gqa_decode`` writes
+    (``models/mla.py``'s ``absorbed_attention``; seq-sharded under
+    ``run.decode_attn``)."""
     B = x.shape[0]
-    H = cfg.n_heads
-    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    scale = Mla.scale_of(cfg)
     positions = torch.full((B, 1), cache_len, dtype=torch.long,
                            device=x.device)
-    qn, qr = Mla._project_q(cfg, p, x)
-    qr = Lyr.apply_rope(qr, positions, cfg.rope_theta)
-    ckv_new, krope_new = Mla._project_ckv(cfg, p, x, positions)
-    q_c = torch.einsum("bshn,rhn->bshr", qn, p["wuk"])
+    q_c, qr, ckv_new, krope_new = Mla.absorbed_q(cfg, p, x, positions)
     if _seq_sharded(run):
         out_c, _, _ = mla_decode_seq_sharded(
             q_c, qr, ckv_new, krope_new[:, :, 0, :], ckv_c, krope_c,
             cache_len, scale, mesh=run.mesh, seq_axis=run.seq_axis,
             batch_axes=run.batch_axes, live=live)
-        out = torch.einsum("bshr,rhv->bshv", out_c.to(x.dtype), p["wuv"])
-        return Lyr.dense(p["wo"], out.reshape(B, 1, H * cfg.v_head_dim))
+        return Mla.absorbed_out(cfg, p, out_c, x.dtype)
     pos = _decode_pos(cache_len, ckv_c)
     olds = [_write(ckv_c, pos, ckv_new[:, 0], live),
             _write(krope_c, pos, krope_new[:, 0, 0], live)]
-    ckv, krope = ckv_c.to(q_c.dtype), krope_c.to(q_c.dtype)
-    T = ckv_c.shape[1]
-    logits = (torch.einsum("bshr,btr->bhst", q_c, ckv)
-              + torch.einsum("bshr,btr->bhst", qr, krope)).float()
-    mask = torch.arange(T, device=x.device) <= cache_len
-    logits = (logits * scale).masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(ckv_c.dtype)
-    out_c = torch.einsum("bhst,btr->bshr", probs.float(),
-                         ckv_c.float()).to(ckv_c.dtype)
+    out_c = Mla.absorbed_attention(q_c, qr, ckv_c, krope_c, cache_len, scale)
     for c, old in zip((ckv_c, krope_c), olds):
         _restore(c, pos, old, live)
-    out = torch.einsum("bshr,rhv->bshv", out_c.to(x.dtype), p["wuv"])
-    return Lyr.dense(p["wo"], out.reshape(B, 1, H * cfg.v_head_dim))
+    return Mla.absorbed_out(cfg, p, out_c, x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
+
+
+def apply_moe(cfg, p, x, *, run=KERNEL, with_aux=True):
+    """The MoE FFN on its pre-norm input by ``run.moe_impl`` (scatter,
+    einsum, or expert-parallel over ``run.mesh``). Returns (y, the
+    load-balance loss); without ``with_aux`` the scatter dispatch skips
+    the loss, which only training reads (then None)."""
+    if run.moe_impl == "ep":
+        if run.mesh is None:
+            raise ValueError("moe_impl='ep' needs RunCfg(mesh=...)")
+        return moe_ffn_ep(cfg, p, x, mesh=run.mesh, ep_axis=run.ep_axis,
+                          batch_axes=run.batch_axes)
+    if run.moe_impl == "einsum":
+        return Moe.moe_ffn_einsum(cfg, p, x, run.moe_group)
+    if run.moe_impl != "scatter":
+        raise ValueError(f"moe_impl must be 'scatter', 'einsum' or 'ep', "
+                         f"got {run.moe_impl!r}")
+    if with_aux:
+        return Moe.moe_ffn(cfg, p, x, with_aux=True)
+    return Moe.moe_ffn(cfg, p, x), None
 
 
 def _ffn(cfg, p, x, kind, run=KERNEL, with_aux=False):
@@ -436,19 +423,8 @@ def _ffn(cfg, p, x, kind, run=KERNEL, with_aux=False):
     if kind != "moe":
         y = Lyr.mlp(cfg, p["mlp"], h)
         return (y, x.new_zeros((), dtype=torch.float32)) if with_aux else y
-    if run.moe_impl == "ep" and run.mesh is None:
-        raise ValueError("moe_impl='ep' needs RunCfg(mesh=...)")
-    if run.moe_impl == "ep":
-        y, aux = moe_ffn_ep(cfg, p["moe"], h, mesh=run.mesh,
-                            ep_axis=run.ep_axis, batch_axes=run.batch_axes)
-        return (y, aux) if with_aux else y
-    if run.moe_impl == "einsum":
-        y, aux = Moe.moe_ffn_einsum(cfg, p["moe"], h, run.moe_group)
-        return (y, aux) if with_aux else y
-    if run.moe_impl != "scatter":
-        raise ValueError(f"moe_impl must be 'scatter', 'einsum' or 'ep', "
-                         f"got {run.moe_impl!r}")
-    return Moe.moe_ffn(cfg, p["moe"], h, with_aux=with_aux)
+    y, aux = apply_moe(cfg, p["moe"], h, run=run, with_aux=with_aux)
+    return (y, aux) if with_aux else y
 
 
 def block_fullseq(cfg, p, x, positions, kind="dense", run=KERNEL, *,
@@ -468,12 +444,9 @@ def block_fullseq(cfg, p, x, positions, kind="dense", run=KERNEL, *,
     if kind not in ("dense", "enc", "dec", "moe", "moe_dense0"):
         raise ValueError(f"block kind {kind!r}")
     xin = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if cfg.use_mla and kind not in ("enc", "dec"):
-        h, kv = mla_fullseq(cfg, p["attn"], xin, positions, run=run)
-    else:
-        h, kv = gqa_fullseq(cfg, p["attn"], xin, positions,
-                            causal=(kind != "enc"), run=run,
-                            mrope_positions=mrope_positions)
+    h, kv = attn_fullseq(cfg, p["attn"], xin, positions, run=run,
+                         causal=(kind != "enc"),
+                         mrope_positions=mrope_positions)
     x = x + h
     if kind == "dec":
         h, xkv = cross_fullseq(cfg, p["xattn"],
@@ -523,11 +496,15 @@ def block_decode(cfg, p, x, csl, cache_len: int, lengths, live=None,
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(cfg, params, tokens):
+def embed_tokens(cfg, params, tokens, dtype=None):
+    """The token lookup (``dtype`` is accepted and unused, as in the
+    reference)."""
     return params["embed"]["w"][tokens]
 
 
-def lm_logits(cfg, params, x):
+def lm_logits(cfg, run, params, x):
+    """The final norm and head, the Megatron vocab padding masked; f32
+    with ``run.logits_f32``."""
     x = Lyr.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["w"].T
@@ -537,10 +514,6 @@ def lm_logits(cfg, params, x):
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
             cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
-
-
-def _cast(logits, run):
     return logits.float() if run.logits_f32 else logits
 
 
@@ -551,8 +524,9 @@ def _sinusoid(seq_len: int, d_model: int, device: torch.device):
 
 
 def _positions(batch, tokens):
+    """The batch's ``positions`` (B,S), else 0..S-1 on every row."""
     if batch.get("positions") is not None:
-        return batch["positions"]
+        return batch["positions"].to(tokens.device)
     B, S = tokens.shape
     return torch.arange(S, device=tokens.device)[None].expand(B, S)
 
@@ -592,14 +566,11 @@ def _pad_seq(t, max_len: int):
     return out
 
 
-def _run_stack(cfg, params, tokens, run, *, positions=None, frames=None,
+def _run_stack(cfg, params, tokens, run, *, positions, frames=None,
                mrope_positions=None, with_aux=False, build_cache=False):
     """Embed ``tokens`` and run every layer. Returns (x (B,S,d), the MoE
     aux loss summed over layers (None unless ``with_aux``), the cache
     entries per layer kind (None unless ``build_cache``))."""
-    B, S = tokens.shape
-    if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = embed_tokens(cfg, params, tokens)
     aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
     if cfg.is_encoder_decoder:
@@ -607,7 +578,8 @@ def _run_stack(cfg, params, tokens, run, *, positions=None, frames=None,
             raise ValueError(f"{cfg.name}: the encoder-decoder needs frames "
                              "(B, encoder_seq, d_model)")
         enc_out = _encode(cfg, params, frames, run)
-        x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
+        x = x + _sinusoid(tokens.shape[1], cfg.d_model, x.device).to(
+            x.dtype)[None]
     entries, attn = [], []
 
     remat = run.remat and not build_cache and torch.is_grad_enabled()
@@ -657,7 +629,7 @@ def forward(cfg, params, batch, run=RunCfg()):
                            frames=batch.get("frames"),
                            mrope_positions=batch.get("mrope_positions"),
                            with_aux=True)
-    return _cast(lm_logits(cfg, params, x), run), {"moe_aux": aux}
+    return lm_logits(cfg, run, params, x), {"moe_aux": aux}
 
 
 def lm_loss(cfg, params, batch, run=RunCfg()):
@@ -682,19 +654,23 @@ def lm_loss(cfg, params, batch, run=RunCfg()):
 # ---------------------------------------------------------------------------
 
 
-def prefill(cfg, params, tokens, max_len: Optional[int] = None, *,
-            frames=None, mrope_positions=None, run=KERNEL):
-    """tokens (B,S) -> (logits of the last position (B,1,V), cache with
-    the self-attention seq dims zero-padded to ``max_len``) in the params'
-    dtype (``h`` f32). ``frames`` (B,Te,d): the encoder-decoder's input;
-    ``mrope_positions`` (3,B,S): the vlm's t/h/w positions. ``run``
-    picks the attention (by default every attention runs B4 on CUDA) and
-    the MoE dispatch; with ``run.decode_attn="seq_sharded"`` the cache
-    comes back laid out for it (``place_cache``)."""
-    S = tokens.shape[1]
-    max_len = max_len or S
-    x, _, cache = _run_stack(cfg, params, tokens, run, frames=frames,
-                             mrope_positions=mrope_positions,
+def prefill(cfg, params, batch, run=KERNEL, max_len: Optional[int] = None):
+    """``batch``: the reference's dict ({"tokens" (B,S)} and, per family,
+    "positions" (B,S), "frames" (B,Te,d), "mrope_positions" (3,B,S)) or a
+    token tensor (B,S). Returns (logits of the last position (B,1,V),
+    cache with the self-attention seq dims zero-padded to ``max_len``) in
+    the params' dtype (``h`` f32). ``run`` picks the attention (by
+    default every attention runs B4 on CUDA) and the MoE dispatch; with
+    ``run.decode_attn="seq_sharded"`` the cache comes back laid out for it
+    (``place_cache``)."""
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    tokens = batch["tokens"]
+    max_len = max_len or tokens.shape[1]
+    x, _, cache = _run_stack(cfg, params, tokens, run,
+                             positions=_positions(batch, tokens),
+                             frames=batch.get("frames"),
+                             mrope_positions=batch.get("mrope_positions"),
                              build_cache=True)
     if cfg.family != "ssm":
         # xk/xv keep the encoder's length; the SSM leaves have no seq dim
@@ -702,7 +678,7 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None, *,
                  _pad_seq(t, max_len) for n, t in cache.items()}
     if _seq_sharded(run):
         place_cache(cache, run)
-    return _cast(lm_logits(cfg, params, x[:, -1:]), run), cache
+    return lm_logits(cfg, run, params, x[:, -1:]), cache
 
 
 def cache_struct(cfg, batch, max_len, dtype=None):
@@ -757,8 +733,8 @@ def init_cache(cfg, batch, max_len, dtype=None, device="cuda", run=None):
         _seq_sharded(run) else cache
 
 
-def decode_step(cfg, params, token, cache, cache_len: int, live=None,
-                mrope_positions=None, *, run=RunCfg()):
+def decode_step(cfg, params, token, cache, cache_len: int, run=RunCfg(),
+                mrope_positions=None, *, live=None):
     """token (B,1) int; cache per ``cache_struct`` (updated in place);
     cache_len: the position this token is written at (it attends
     [0, cache_len]). ``live`` (B,) bool keeps the cache rows of dead
@@ -785,7 +761,7 @@ def decode_step(cfg, params, token, cache, cache_len: int, live=None,
             x = block_decode(cfg, lp, x, {"h": cache["h"][i],
                                           "conv": cache["conv"][i]},
                              cache_len, lengths, live, kind="ssm", run=run)
-        return lm_logits(cfg, params, x), cache
+        return lm_logits(cfg, run, params, x), cache
     if cfg.is_encoder_decoder:
         # the position row at cache_len, clamped past the end as the
         # reference's dynamic_slice is
@@ -796,4 +772,28 @@ def decode_step(cfg, params, token, cache, cache_len: int, live=None,
         x = block_decode(cfg, lp, x, {n: t[i] for n, t in cache.items()},
                          cache_len, lengths, live, kind=kind,
                          mrope_positions=mrope_positions, run=run)
-    return lm_logits(cfg, params, x), cache
+    return lm_logits(cfg, run, params, x), cache
+
+
+def serve_step(cfg, params, token, cache, cache_len: int, rng, run=RunCfg(),
+               temperature=0.0):
+    """``decode_step`` and the next token: (next (B,1) long, cache).
+    Greedy (first-occurrence argmax) unless ``temperature`` > 0, then a
+    sample from softmax(logits / temperature) drawn with ``rng`` (a
+    ``torch.Generator`` on the logits' device, or None for torch's
+    default): ``jax.random``'s stream cannot be reproduced, so sampled
+    tokens match the reference in distribution only."""
+    logits, cache = decode_step(cfg, params, token, cache, cache_len, run)
+    lg = logits[:, -1, :].float()
+    if temperature and temperature > 0:
+        nxt = torch.multinomial(torch.softmax(lg / temperature, dim=-1), 1,
+                                generator=rng)[:, 0]
+    else:
+        nxt = torch.argmax(lg, dim=-1)
+    return nxt[:, None], cache
+
+
+def count_params(params) -> int:
+    """The number of parameter elements (a ``Sharded`` leaf counts its
+    global shape once)."""
+    return sum(math.prod(t.shape) for t in tree_leaves(params))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tokenizer import EOS
+from repro_torch.distributed.sharding import Sharded, shard
 from repro_torch.models import model as M
 
 
@@ -46,10 +47,14 @@ def sample_token(logits, generator: torch.Generator, temperature):
 
 
 class Engine:
-    """One model on one device; serves many sessions."""
+    """One model on one device (or over ``run.mesh``); serves many
+    sessions. ``run`` (the reference's ``RunCfg``) reaches every prefill
+    and decode step; None keeps the port's kernel default (B4 prefill,
+    B3 decode on a card), where the reference defaults to
+    ``RunCfg(attn_impl="naive", remat=False)``."""
 
-    def __init__(self, cfg, params, tokenizer, max_len: int = 256,
-                 chunk: int = 8):
+    def __init__(self, cfg, params, tokenizer, run: M.RunCfg = None,
+                 max_len: int = 256, chunk: int = 8):
         if cfg.family in ("encdec", "vlm"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is served through the "
@@ -62,6 +67,7 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer
+        self.run = run
         self.max_len = max_len
         self.chunk = chunk
         self.device = params["embed"]["w"].device
@@ -75,7 +81,8 @@ class Engine:
     # -- programs -------------------------------------------------------------
     @torch.no_grad()
     def _prefill(self, tokens):
-        return M.prefill(self.cfg, self.params, tokens, max_len=self.max_len)
+        return M.prefill(self.cfg, self.params, {"tokens": tokens},
+                         self.run or M.KERNEL, max_len=self.max_len)
 
     @torch.no_grad()
     def _decode_chunk(self, token, cache, cache_len: int, generator,
@@ -87,7 +94,8 @@ class Engine:
         toks = []
         for _ in range(self.chunk):
             logits, cache = M.decode_step(self.cfg, self.params, token, cache,
-                                          cache_len, live)
+                                          cache_len, self.run or M.RunCfg(),
+                                          live=live)
             nxt = sample_token(logits[:, -1, :], generator, temperature)
             token = torch.where(live[:, None], nxt[:, None], token)
             toks.append(token[:, 0])
@@ -97,9 +105,18 @@ class Engine:
     @torch.no_grad()
     def _write_slot(self, batch_cache, one_cache, slot: int):
         """Insert a prefilled single-request cache at batch slot ``slot``
-        (in place, cast to the batched cache's dtype)."""
+        (in place, cast to the batched cache's dtype). A seq-sharded leaf
+        (``Sharded``) is written whole and laid out again."""
         for name, bc in batch_cache.items():
-            bc[:, slot] = one_cache[name][:, 0].to(bc.dtype)
+            one = one_cache[name]
+            if isinstance(one, Sharded):
+                one = one.full()
+            if isinstance(bc, Sharded):
+                whole = bc.full()
+                whole[:, slot] = one[:, 0].to(whole.dtype)
+                batch_cache[name] = shard(whole, bc.spec, bc.mesh)
+            else:
+                bc[:, slot] = one[:, 0].to(bc.dtype)
         return batch_cache
 
     # -- sessions -------------------------------------------------------------
@@ -225,7 +242,7 @@ class BatchScheduler:
         self.e = engine
         self.B = batch_size
         self.cache = M.init_cache(engine.cfg, batch_size, engine.max_len,
-                                  device=engine.device)
+                                  device=engine.device, run=engine.run)
         self.token = torch.zeros((batch_size, 1), dtype=torch.long,
                                  device=engine.device)
         self.live = np.zeros(batch_size, bool)

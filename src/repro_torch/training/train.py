@@ -23,6 +23,8 @@ leaves (``sharding.place`` per ``param_shardings`` and
 ``distributed/train_parallel.py``'s: the microbatches are the reference's
 contiguous slices of the global batch, each then split over the batch
 axes; each microbatch's loss is normalised over its own valid labels.
+In a pod group (one process per host, ``distributed/multihost.py``) the
+gradients are then summed over pods.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import functools
 
 import torch
 
-from repro_torch.distributed import train_parallel
+from repro_torch.distributed import multihost, train_parallel
 from repro_torch.distributed.sharding import elementwise
 from repro_torch.models import model as M
 from repro_torch.models.convert import tree_leaves, tree_map
@@ -109,10 +111,19 @@ def accumulate(grad_fn, params, batch, accum=1):
 
 def make_train_step(cfg, run=M.RunCfg(), ocfg=O.AdamWCfg(), accum=1,
                     compress=None):
+    """Inside a pod group (``distributed/multihost.py``) ``batch`` is this
+    pod's rows of the global batch, ``run`` lays out its local mesh, and
+    the accumulated gradients are summed over pods before compression and
+    AdamW, so every pod applies the same update."""
     grad_fn = make_grad_fn(cfg, run)
 
     def train_step(params, opt_state, batch):
+        if multihost.n_pods() > 1 and run.mesh is None:
+            raise ValueError("a pod group trains on a local mesh: pass "
+                             "RunCfg(mesh=...) (a (data, model) mesh of "
+                             "this process's devices)")
         loss, metrics, grads = accumulate(grad_fn, params, batch, accum)
+        multihost.all_reduce_grads(grads)
         if compress is not None:
             grads, opt_state = compress(grads, opt_state)
         params, opt_state, om = O.update(ocfg, grads, opt_state, params)

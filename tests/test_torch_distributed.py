@@ -376,7 +376,7 @@ def test_seq_sharded_greedy_decode_matches_reference(arch):
     jrun = JM.RunCfg(attn_impl="naive")
     lg, cache = JM.prefill(cfg, params, {"tokens": jnp.asarray(tokens)},
                            jrun, max_len=M_)
-    tlg, tcache = TM.prefill(tcfg, tparams, _t(tokens), M_, run=run)
+    tlg, tcache = TM.prefill(tcfg, tparams, _t(tokens), run, max_len=M_)
     assert all(isinstance(tcache[n], Sharded) for n in tcache)
     _close(tlg, lg, 1e-4)
     tok = np.asarray(jnp.argmax(lg[:, -1], -1))[:, None]
@@ -386,7 +386,7 @@ def test_seq_sharded_greedy_decode_matches_reference(arch):
                                    cache, jnp.asarray(S + step, jnp.int32),
                                    jrun)
         tlg, tcache = TM.decode_step(tcfg, tparams, _t(tok).long(), tcache,
-                                     S + step, run=run)
+                                     S + step, run)
         _close(tlg, lg, 1e-4)
         tok = np.asarray(jnp.argmax(lg[:, -1], -1))[:, None]
     for n in cache:
@@ -403,7 +403,7 @@ def test_decode_step_lays_out_a_plain_cache_and_keeps_dead_rows():
     before = cache["k"].clone()
     live = torch.tensor([True, False])
     _, out = TM.decode_step(tcfg, tparams, torch.tensor([[3], [4]]), cache,
-                            5, live, run=run)
+                            5, run, live=live)
     assert out is cache and isinstance(cache["k"], Sharded)
     k = cache["k"].full()
     assert torch.equal(k[:, 1], before[:, 1])
@@ -454,8 +454,10 @@ def test_meshes_refuse_what_they_cannot_place():
                                                           "model": 1}
     with pytest.raises(ValueError, match="one type"):
         Meshes.make_mesh((2,), ("model",), devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        Meshes.make_production_mesh(multi_pod=True)
+    pod = Meshes.make_production_mesh(multi_pod=True, devices=["cpu"] * 4)
+    assert pod.shape == {"pod": 2, "data": 1, "model": 2}
+    with pytest.raises(ValueError, match="even number"):
+        Meshes.make_production_mesh(multi_pod=True, devices=["cpu"] * 3)
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="no CUDA device"):
             Meshes.make_production_mesh()

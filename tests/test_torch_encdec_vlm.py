@@ -111,13 +111,14 @@ def _ref_batch(tokens, frames, mrope):
     return b
 
 
-def _port_kw(frames, mrope):
-    kw = {}
+def _port_batch(tokens, frames, mrope):
+    """The reference's batch dict for the port's ``prefill``."""
+    batch = {"tokens": _t(tokens).long()}
     if frames is not None:
-        kw["frames"] = _t(frames)
+        batch["frames"] = _t(frames)
     if mrope is not None:
-        kw["mrope_positions"] = _t(mrope).long()
-    return kw
+        batch["mrope_positions"] = _t(mrope).long()
+    return batch
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -173,8 +174,8 @@ def test_prefill_logits_and_every_cache_leaf_match(family, seed):
     tokens, frames, mrope = _inputs(cfg, seed=seed)
     lg, cache = M.prefill(cfg, params, _ref_batch(tokens, frames, mrope),
                           RUN, max_len=MAX_LEN)
-    tlg, tcache = TM.prefill(tcfg, tparams, _t(tokens).long(), MAX_LEN,
-                             **_port_kw(frames, mrope))
+    tlg, tcache = TM.prefill(
+        tcfg, tparams, _port_batch(tokens, frames, mrope), max_len=MAX_LEN)
     _close(tlg, lg)
     assert set(tcache) == set(cache) == set(TM.cache_struct(tcfg, 2,
                                                             MAX_LEN))
@@ -201,8 +202,8 @@ def _ref_greedy(cfg, params, tokens, frames, mrope, n):
 def _port_greedy(tcfg, tparams, tokens, frames, mrope, n, chunk=CHUNK):
     """Prefill, then decode in chunks of ``chunk`` steps (the engine's
     structure), greedy."""
-    lg, cache = TM.prefill(tcfg, tparams, _t(tokens).long(), MAX_LEN,
-                           **_port_kw(frames, mrope))
+    lg, cache = TM.prefill(
+        tcfg, tparams, _port_batch(tokens, frames, mrope), max_len=MAX_LEN)
     out = [torch.argmax(lg[:, -1], -1)]
     clen = tokens.shape[1]
     while len(out) < n:
@@ -235,14 +236,13 @@ def test_decode_step_matches_forward_at_the_next_position(family):
     if mrope is not None:
         mrope[:, :, -1] = S - 1
     full, _ = M.forward(cfg, params, _ref_batch(tokens, frames, mrope), RUN)
-    tfull, aux = TM.forward(tcfg, tparams, dict(tokens=_t(tokens).long(),
-                                                **_port_kw(frames, mrope)),
+    tfull, aux = TM.forward(tcfg, tparams, _port_batch(tokens, frames, mrope),
                             TM.RunCfg(attn_impl="naive"))
     _close(tfull, full)
     assert float(aux["moe_aux"]) == 0.0
-    _, cache = TM.prefill(tcfg, tparams, _t(tokens[:, :-1]).long(), MAX_LEN,
-                          **_port_kw(frames, None if mrope is None
-                                     else mrope[:, :, :-1]))
+    _, cache = TM.prefill(tcfg, tparams, _port_batch(
+        tokens[:, :-1], frames, None if mrope is None else mrope[:, :, :-1]),
+        max_len=MAX_LEN)
     lg, _ = TM.decode_step(tcfg, tparams, _t(tokens[:, -1:]).long(), cache,
                            S - 1)
     _close(lg[:, 0], tfull[:, S - 1])
@@ -275,8 +275,10 @@ def test_mrope_with_distinct_streams_matches_reference():
         .astype(np.int32)
     lg, cache = M.prefill(cfg, params, _ref_batch(tokens, None, pos), RUN,
                           max_len=MAX_LEN)
-    tlg, tcache = TM.prefill(tcfg, tparams, _t(tokens).long(), MAX_LEN,
-                             mrope_positions=_t(pos).long())
+    tlg, tcache = TM.prefill(tcfg, tparams,
+                             {"tokens": _t(tokens).long(),
+                              "mrope_positions": _t(pos).long()},
+                             max_len=MAX_LEN)
     _close(tlg, lg)
     for n in cache:
         _close(tcache[n], cache[n])
@@ -298,8 +300,8 @@ def test_bf16_cache_decode_matches_reference(family):
     _, cache = M.prefill(cfg, params, _ref_batch(tokens, frames, mrope), RUN,
                          max_len=MAX_LEN)
     cache = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), cache)
-    _, tcache = TM.prefill(tcfg, tparams, _t(tokens).long(), MAX_LEN,
-                           **_port_kw(frames, mrope))
+    _, tcache = TM.prefill(
+        tcfg, tparams, _port_batch(tokens, frames, mrope), max_len=MAX_LEN)
     tcache = {n: t.to(torch.bfloat16) for n, t in tcache.items()}
     tok = tokens[:, -1:]
     for i in range(2):
@@ -322,8 +324,8 @@ def test_decode_past_the_cache_end_clamps_as_the_reference(family):
     tokens, frames, mrope = _inputs(cfg, seed=6)
     _, cache = M.prefill(cfg, params, _ref_batch(tokens, frames, mrope), RUN,
                          max_len=S + 2)
-    _, tcache = TM.prefill(tcfg, tparams, _t(tokens).long(), S + 2,
-                           **_port_kw(frames, mrope))
+    _, tcache = TM.prefill(
+        tcfg, tparams, _port_batch(tokens, frames, mrope), max_len=S + 2)
     lg, cache = M.decode_step(cfg, params, jnp.asarray(tokens[:, :1]), cache,
                               jnp.asarray(S + 5, jnp.int32), RUN)
     tlg, tcache = TM.decode_step(tcfg, tparams, _t(tokens[:, :1]).long(),
@@ -355,8 +357,8 @@ def test_every_attention_goes_through_the_kernel_wrappers(family,
     cfg, params, tcfg, tparams, _ = family
     tokens, frames, mrope = _inputs(cfg, seed=7)
     calls = _counting(monkeypatch)
-    _, cache = TM.prefill(tcfg, tparams, _t(tokens).long(), MAX_LEN,
-                          **_port_kw(frames, mrope))
+    _, cache = TM.prefill(
+        tcfg, tparams, _port_batch(tokens, frames, mrope), max_len=MAX_LEN)
     Te = cfg.encoder_seq
     if cfg.is_encoder_decoder:
         want = [(2, Te, cfg.n_kv_heads, 16)] * cfg.n_encoder_layers + \

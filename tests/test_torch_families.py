@@ -540,7 +540,8 @@ def test_decode_step_keeps_dead_slot_rows(family):
                                            * (n.ndim - 2)), n,
                                o).astype(o.dtype), new, cache)
     tlg, tnew = TM.decode_step(port.cfg, port.params, _t(token).long(),
-                               tcache, clen + 1, torch.from_numpy(live))
+                               tcache, clen + 1,
+                               live=torch.from_numpy(live))
     assert tnew is tcache
     _close(tlg[0], lg[0], 2e-2)      # bf16 cache entries
     for n in tcache:

@@ -590,7 +590,7 @@ def _teacher_forced_logits(cfg, params, tok, prompts, out_ids, max_len,
                 token = torch.tensor([[o[t]] for o in out_ids],
                                      device=e.device)
             logits, cache = M.decode_step(cfg, params, token, cache,
-                                          len(ids[0]) + t, live)
+                                          len(ids[0]) + t, live=live)
             steps.append(logits[:, -1])
             token = logits[:, -1].argmax(-1)[:, None]
     return torch.stack(first).cpu(), torch.stack(steps).cpu()
@@ -939,8 +939,9 @@ def test_gpu_encdec_vlm_greedy_tokens_match_cpu(cuda, arch):
     for dev in ("cpu", cuda):
         ops.reset_launch_counts()
         p = params if dev == "cpu" else _to(params, dev)
-        lg, cache = M.prefill(cfg, p, tokens.to(dev), 40,
-                              **{k: v.to(dev) for k, v in kw.items()})
+        lg, cache = M.prefill(cfg, p, dict(
+            {k: v.to(dev) for k, v in kw.items()}, tokens=tokens.to(dev)),
+            max_len=40)
         first.append(lg.cpu())
         ids = [lg[:, -1].argmax(-1)]
         for t in range(8):

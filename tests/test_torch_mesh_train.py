@@ -373,5 +373,5 @@ def test_train_launcher_trains_on_a_mesh_and_resumes_across_meshes(
     assert "mesh={'data': 1, 'model': 1}" in out and "resumed at step 3" \
         in out
     assert CK.Checkpointer(ck).latest_step() == 4
-    with pytest.raises(NotImplementedError, match="A14"):
-        L.main(base + ["--multipod"])
+    with pytest.raises(ValueError, match="--backend nccl needs"):
+        L.main(base + ["--multipod", "--backend", "nccl"])

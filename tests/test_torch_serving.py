@@ -189,6 +189,11 @@ def _imports(path: Path):
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {f.name for f in examples} == {
+        "quickstart_torch.py", "storinfer_serve_torch.py",
+        "train_small_torch.py"}
+    files += examples
     assert len(files) > 20
     names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
              if "repro_torch" in f.parts}
@@ -203,7 +208,8 @@ def test_port_sources_import_no_jax_and_no_reference():
             "training/optimizer.py", "training/train.py",
             "training/compression.py", "training/data.py",
             "training/checkpoint.py", "launch/train.py",
-            "distributed/train_parallel.py", "launch/specs.py"} <= names
+            "distributed/train_parallel.py", "launch/specs.py",
+            "distributed/multihost.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -248,8 +254,9 @@ for arch in ("whisper-base", "qwen2-vl-72b"):
     kw = {"frames": torch.randn(1, mc.encoder_seq, mc.d_model)} \
         if mc.is_encoder_decoder else \
         {"mrope_positions": torch.zeros(3, 1, 5, dtype=torch.long)}
-    lg, cache = M.prefill(mc, params, torch.ones(1, 5, dtype=torch.long), 8,
-                          **kw)
+    lg, cache = M.prefill(mc, params,
+                          dict(kw, tokens=torch.ones(1, 5, dtype=torch.long)),
+                          max_len=8)
     M.decode_step(mc, params, torch.ones(1, 1, dtype=torch.long), cache, 5)
 ck = str(Path(tempfile.mkdtemp()) / "ck")
 launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",

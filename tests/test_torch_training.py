@@ -626,11 +626,13 @@ def test_train_launcher_smoke_runs_and_resumes(tmp_path):
 
 
 def test_train_launcher_refuses_the_mesh_paths():
-    """The pod axis spans hosts (ROADMAP A14); the production mesh on
-    CUDA needs visible cards and never falls back to the CPU."""
+    """The pod group's backend is never switched for the caller: NCCL on
+    CPU processes raises; the production mesh on CUDA needs visible cards
+    and never falls back to the CPU."""
     from repro_torch.launch import train as L
-    with pytest.raises(NotImplementedError, match="A14"):
-        L.main(["--arch", "qwen3-1.7b", "--multipod", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--backend nccl needs"):
+        L.main(["--arch", "qwen3-1.7b", "--multipod", "--device", "cpu",
+                "--backend", "nccl"])
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="no CUDA device"):
             L.main(["--arch", "qwen3-1.7b"])
