@@ -105,6 +105,19 @@ result line is printed only when every phase passed:
    .py`` called in process on the card: the quickstart's hit rate as on
    the CPU, the serve example on B1, B3 and B4 with request 1 cancelled,
    the train example trained, then resumed, its loss falling.
+19. dry run — the dry-run tooling (``launch/dryrun.py``) held against the
+   card: (a) qwen3-1.7b ``decode_32k`` on the production pod16x16 mesh,
+   counted on 256 meta shards on this host (depth-1/2 probes), its memory
+   and roofline terms; (b) two ``build_cell`` plans on a (data 1, model 1)
+   mesh, qwen3-1.7b trained at phase 14's 4 x 256 tokens and decoding the
+   full 32,768-token cache at the largest batch predicted to fit in 60
+   GB (``reduced:`` lines), each counted on meta and then run on the card:
+   the predicted peak within 10% of the measured ``max_memory_allocated``
+   above what the run started with, and the measured device time of a
+   step no shorter than the predicted bound (their share at most 1.05);
+   (c) B1, B2, B3 and B4 (a) at phase 3's shapes under the counter on the
+   card, one launch each, crediting the same product FLOPs and least bytes
+   as the same call on CPU copies.
 
 Phase 3 also holds B3 and B4 at grok-1's and zamba2's head shapes, B4 at
 MLA's (q/k 192, v 128), and both at phase 13's: whisper-base's encoder
@@ -132,14 +145,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
-HBM_BYTES_S = 3.35e12
-F32_FLOPS = 67e12            # CUDA cores, the f32 FMAs of B3
-# tensor cores: a B1 product is two TF32 products with a 16-bit store
-# (2xTF32), three with an f32 store, as is a B4 f32 product (3xTF32)
-TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12           # int8 rate, B2's int8 products
+# H100 SXM peaks (the package's, from NVIDIA's data sheet, dense): the
+# bound of each kernel. F32_FLOPS on the CUDA cores takes B3's f32 FMAs;
+# on the tensor cores a B1 product is two TF32 products with a 16-bit
+# store (2xTF32), three with an f32 store, as is a B4 f32 product
+# (3xTF32); INT8_OPS takes B2's int8 products.
+from repro_torch.launch.dryrun import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
+                                       HBM_BYTES_S, INT8_OPS, TF32_FLOPS)
 TOL_F32 = 1e-5               # B1 contract (rtol and atol)
 TOL_DECODE_F32 = 2e-4        # B3 contract with an f32 cache
 # B3 with a bf16 cache: the kernel rounds the unnormalised exp(s - m_split)
@@ -271,11 +283,11 @@ def pct(a, q):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters, flush=None):
+def time_ms(torch, fn, iters, flush=None, warm=3):
     """Median device time of ``fn`` over ``iters`` launches (CUDA events
-    around each call, after warm-up; ``flush`` is written between calls
-    so a large operand is not found in L2)."""
-    for _ in range(3):
+    around each call, after ``warm`` calls; ``flush`` is written between
+    calls so a large operand is not found in L2)."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -319,7 +331,7 @@ def _profiled_us(torch, fn, iters, kernel=None):
 PROFILE_TRIES = 3   # traces taken before a call is timed with CUDA events
 
 
-def device_ms(torch, fn, iters, flush=None, kernel=None):
+def device_ms(torch, fn, iters, flush=None, kernel=None, warm=3):
     """Device time per call (ms) from the profiler: the named kernel's
     time, or every device activity of the call minus the L2 flush's
     (profiled alone). A trace that holds device activity but none whose
@@ -327,8 +339,8 @@ def device_ms(torch, fn, iters, flush=None, kernel=None):
     timed as something else. A trace with no device time at all (CUPTI
     recorded nothing, or the flush's own spread swallowed the call) is
     taken again; after ``PROFILE_TRIES`` such traces the call is timed
-    with CUDA events instead, and stderr says so."""
-    for _ in range(3):
+    with CUDA events instead, and stderr says so. ``warm`` calls first."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     step = fn if flush is None else (lambda: (flush.add_(1), fn()))
@@ -346,7 +358,7 @@ def device_ms(torch, fn, iters, flush=None, kernel=None):
               f"held no device "
               f"time ({seen} device activities, {tot:.3f} us after the "
               "flush)", file=sys.stderr)
-    ms = time_ms(torch, fn, iters, flush)
+    ms = time_ms(torch, fn, iters, flush, warm)
     print(f"note: that call is timed with CUDA events instead: {ms:.6f} ms",
           file=sys.stderr)
     return ms
@@ -374,6 +386,17 @@ def bound(nbytes, ops, peak):
 
 def nb(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def credit(torch, fn):
+    """(FLOPs, bytes) that the one kernel wrapper ``fn`` calls credits to a
+    cost counter (``launch/costs.py``): the kernel's own work, from
+    ``kernels/ops.py``'s ``*_work``. ``fn`` runs once."""
+    from repro_torch.launch import costs
+    with costs.Counter() as c:
+        fn()
+    (k,) = c.kernels.values()
+    return k["flops"], k["bytes"]
 
 
 # ---------------------------------------------------------------------------
@@ -486,12 +509,10 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
     print(f"B1 library yardstick: matmul + topk with the f32 upcast "
           f"{spread(lib)} ms, on a store upcast beforehand "
           f"{spread(lib_gemm)} ms (device time per call)")
-    nt = -(-N // tn)
+    flops, moved = credit(torch, lambda: ops.mips_topk(q, x, k, tile))
     # two TF32 products per product of an fp16 store (2xTF32)
-    b_ms, b_by = bound(nb(q, x) + nt * Q * k * 8, 2 * 2 * Q * N * D,
-                       TF32_FLOPS)
-    old_ms, old_by = bound(nb(q, x) + nt * Q * k * 8, 2 * Q * N * D,
-                           F32_FLOPS)
+    b_ms, b_by = bound(moved, 2 * flops, TF32_FLOPS)
+    old_ms, old_by = bound(moved, flops, F32_FLOPS)
     print(f"B1 bound: {b_ms:.4f} ms ({b_by}; 2xTF32 products at the TF32 "
           f"rate); on PR 8's basis, f32 products on the CUDA cores: "
           f"{old_ms:.4f} ms ({old_by})")
@@ -550,8 +571,9 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
     lib, lib_call = timed(torch, lambda: torch.topk(
         (q8.float() @ x8.t().float()) * qs[:, None] * xs[None, :], k), 10,
         flush)
-    b_ms, b_by = bound(nb(q8, qs, x8, xs) + nt * Q * k * 8, 2 * Q * N * D,
-                       INT8_OPS)
+    flops, moved = credit(torch, lambda: ops.mips_topk_int8(q8, qs, x8, xs,
+                                                            k, tile))
+    b_ms, b_by = bound(moved, flops, INT8_OPS)
     rows.append(dict(name="mips_topk_int8", route="cuda",
                      source="src/repro_torch/csrc/mips_topk_int8.cu",
                      replaces="src/repro/kernels/mips_topk_int8.py:50",
@@ -638,8 +660,7 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
     def b3_timing(qq, kk, vv, lens, iters):
         """(kernel, plain, library) device ms, their per-call event ms,
         and the bound, for one B3 shape."""
-        B_, Hq_, D_ = qq.shape
-        T_, Hkv_ = kk.shape[1], kk.shape[2]
+        T_ = kk.shape[1]
         ms_, call_ = timed(torch, lambda: ops.decode_attention(
             qq, kk, vv, lens, ns), iters, None, "decode_attention_kernel")
         plain_, plain_call_ = timed(torch, lambda: da.combine_splits(
@@ -651,10 +672,9 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
         lib_, lib_call_ = timed(torch, lambda: F.scaled_dot_product_attention(
             qs_, kt, vt, attn_mask=mask, enable_gqa=True), iters)
         # the attended rows of k and v, read once each
-        att = int((lens.clamp(max=T_ - 1) + 1).sum())
-        kv_bytes = att * Hkv_ * D_ * kk.element_size() * 2
-        b_ms_, b_by_ = bound(nb(qq, lens) + kv_bytes + B_ * Hq_ * D_ * 4,
-                             4 * att * Hq_ * D_, F32_FLOPS)
+        flops_, moved_ = credit(torch, lambda: ops.decode_attention(
+            qq, kk, vv, lens, ns))
+        b_ms_, b_by_ = bound(moved_, flops_, F32_FLOPS)
         return ms_, plain_, lib_, (call_, plain_call_, lib_call_), b_ms_, \
             b_by_
 
@@ -722,8 +742,6 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
     def b4_timing(qq, kk, vv, causal, iters, flush_=None):
         """(kernel, plain, library) device ms, their per-call event ms,
         and the bound, for one shape."""
-        B_, S_, Hq_, D_ = qq.shape
-        T_ = kk.shape[1]
         ms_, call_ = timed(torch, lambda: fa.flash_attention_cuda(
             lib_fa, qq, kk, vv, causal), iters, flush_,
             "flash_attention_kernel")
@@ -733,13 +751,12 @@ def phase_kernels(torch, np, args, dev, prompt_len, logs):
         lib_, lib_call_ = timed(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), iters, flush_)
         # the (query, key) pairs this call must score: all, or the causal
-        # lower triangle
-        pairs = sum(min(i + 1, T_) for i in range(S_)) if causal \
-            else S_ * T_
-        ops_ = 4 * B_ * Hq_ * D_ * pairs
-        b_ms_, b_by_ = bound(2 * nb(qq) + nb(kk, vv), 3 * ops_, TF32_FLOPS) \
+        # lower triangle; f32 products as 3xTF32
+        ops_, moved = credit(torch, lambda: ops.flash_attention(
+            qq, kk, vv, causal))
+        b_ms_, b_by_ = bound(moved, 3 * ops_, TF32_FLOPS) \
             if qq.dtype == torch.float32 else \
-            bound(2 * nb(qq) + nb(kk, vv), ops_, BF16_FLOPS)
+            bound(moved, ops_, BF16_FLOPS)
         return ms_, plain_, lib_, (call_, plain_call_, lib_call_), b_ms_, \
             b_by_
 
@@ -3183,6 +3200,209 @@ def phase_examples(torch, np, args, card, dev):
     return out
 
 
+DRY_ARCH = "qwen3-1.7b"
+DRY_FIT_GB = 60.0            # 19 (b): the decode batch's memory budget
+TOL_PEAK = 0.10              # 19 (b): predicted vs measured peak
+MAX_SHARE = 1.05             # 19 (b): bound / measured device time
+
+
+def _materialize(torch, tree, shardings, dev, g):
+    """Meta tensors of a plan's input as seeded tensors on ``dev``: ints
+    in [0, 8), floats normal; a leaf with a placement on the (1, 1) mesh
+    becomes its one-shard ``Sharded`` (the tensor itself, where
+    ``sharding.place`` would copy it)."""
+    import numpy as np
+    from repro_torch.distributed import sharding as Sh
+    if isinstance(tree, dict):
+        return {k: _materialize(torch, v, None if shardings is None else
+                                shardings[k], dev, g)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_materialize(torch, v, None if shardings is None else
+                             shardings[i], dev, g)
+                for i, v in enumerate(tree)]
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if tree.dtype.is_floating_point:       # in its dtype: no f32 copy
+        t = torch.randn(tree.shape, generator=g, device=dev,
+                        dtype=tree.dtype).mul_(0.02)
+    else:
+        t = torch.randint(0, 8, tree.shape, generator=g, device=dev,
+                          dtype=tree.dtype)
+    if shardings is None:
+        return t
+    shards = np.empty((1, 1), dtype=object)
+    shards[0, 0] = t
+    return Sh.Sharded(shardings.mesh, shards, shardings.spec)
+
+
+def _card_plan(torch, arch, shape, dev, g):
+    """``build_cell``'s plan for ``shape`` on a (data 1, model 1) mesh of
+    the card, with seeded inputs in place (AdamW's state made from the
+    params by ``optimizer.init``, as the plan's is)."""
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import optimizer as O
+    mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    plan = SP.build_cell(arch, shape, mesh)
+    args = [None if plan.kind == "train" and i == 1 else
+            _materialize(torch, a, sh, dev, g)
+            for i, (a, sh) in enumerate(zip(plan.arg_structs,
+                                            plan.in_shardings))]
+    if plan.kind == "train":
+        args[1] = O.init(args[0])
+    return plan, args
+
+
+def phase_dryrun(torch, np, args, card, dev):
+    """19: the dry run's predictions held against the card (see the module
+    docstring)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costs
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_mesh
+
+    label = "dry run"
+    out = {}
+    cfg = get_config(DRY_ARCH)
+
+    # (a) the production cell, on 256 meta shards of this host
+    t0 = time.perf_counter()
+    cell = DR.run_cell(DRY_ARCH, "decode_32k", multi_pod=False, probes=True,
+                       verbose=False)
+    wall = time.perf_counter() - t0
+    check(cell["status"] == "ok", f"{label} (a): {cell['status']}")
+    r, m = cell["roofline"], cell["memory"]
+    print(f"{label} (a): {DRY_ARCH} decode_32k on {cell['mesh']} (256 meta "
+          f"shards, {cell['collectives']['method']}): notes "
+          f"{cell['notes']}; per device total {m['total_gb']:.3f} GB (args "
+          f"{m['args_gb']:.3f}, temp {m['temp_gb']:.3f}), fits 80 GB "
+          f"{m['fits_80gb']}; compute {r['compute_s'] * 1e3:.4f} ms, memory "
+          f"{r['memory_s'] * 1e3:.4f} ms, collective "
+          f"{r['collective_s'] * 1e3:.4f} ms ({r['dominant']}), bound "
+          f"{r['bound_step_time_s'] * 1e3:.4f} ms, useful FLOPs "
+          f"{r['useful_flops_frac']:.4f}; {wall:.1f} s on the host")
+    check(all(np.isfinite([r["compute_s"], r["memory_s"],
+                           r["collective_s"]])) and m["total_gb"] > 0,
+          f"{label} (a): a term is not finite ({r})")
+
+    # (b) two plans, predicted on meta, then run on the card
+    meta = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    train = ShapeConfig(f"train_{LM_BATCH}x{LM_SEQ}", LM_SEQ, LM_BATCH,
+                        "train")
+
+    def predict(shape):
+        c, secs = DR.count_plan(SP.build_cell(DRY_ARCH, shape, meta))
+        t = DR.tally(c, meta)
+        return t, DR.roofline(t, cfg, shape, shape.kind), secs
+
+    def decode(b):
+        return ShapeConfig(f"decode_32k_b{b}", 32768, b, "decode")
+
+    # the peak grows by a row's cache a row: start from the line through
+    # batches 1 and 2, step down until the prediction fits
+    p1, p2 = (predict(decode(b))[0]["memory"]["total_gb"] for b in (1, 2))
+    B = max(1, min(128, int((DRY_FIT_GB - p1) // (p2 - p1)) + 2))
+    while True:
+        dec = decode(B)
+        pred_dec = predict(dec)
+        if pred_dec[0]["memory"]["total_gb"] <= DRY_FIT_GB or B == 1:
+            break
+        B -= 1
+    print(f"reduced: phase 19 (b) {DRY_ARCH} train at {LM_BATCH} x {LM_SEQ} "
+          f"tokens (train_4k: 256 x 4096) and decode_32k at batch {B} (of "
+          f"128: the largest predicted to fit in {DRY_FIT_GB:.0f} GB), both "
+          "on a (data 1, model 1) mesh of the card")
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    for shape, (t, roof, secs) in ((train, predict(train)), (dec, pred_dec)):
+        kind = shape.kind
+        release(torch)
+        base = torch.cuda.memory_allocated()
+        plan, real = _card_plan(torch, DRY_ARCH, shape, dev, g)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        step = lambda: plan.fn(*real)                     # noqa: E731
+        ops.reset_launch_counts()
+        step()                                            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call_ms = time_ms(torch, step, 1, warm=0)
+        peak = torch.cuda.max_memory_allocated() - base
+        out[f"dry run {kind}"] = ops.launch_counts()
+        res = step()
+        first = res[0] if kind == "decode" else res[2]["loss"]
+        check(bool(torch.isfinite(first.float()).all()),
+              f"{label} (b) {kind}: a non-finite result")
+        dev_ms = sorted(device_ms(torch, step, 1, warm=0) for _ in range(3))
+        pred = t["memory"]["total_gb"] * 1e9
+        bound_ms = roof["bound_step_time_s"] * 1e3
+        share = bound_ms / dev_ms[1]
+        print(f"{label} (b) {kind} {shape.global_batch} x {shape.seq_len} "
+              f"(notes {plan.notes}; counted on meta in {secs:.1f} s): "
+              f"peak predicted {gib(pred):.3f} GiB (args "
+              f"{gib(t['memory']['args_gb'] * 1e9):.3f}), measured "
+              f"{gib(peak):.3f} GiB (inputs {gib(held):.3f}), ratio "
+              f"{pred / peak:.4f}; step device time {spread(dev_ms)} ms "
+              f"(with host gaps {call_ms:.2f} ms), bound {bound_ms:.4f} ms "
+              f"({roof['dominant']}: compute {roof['compute_s'] * 1e3:.4f}, "
+              f"memory {roof['memory_s'] * 1e3:.4f}), share {share:.4f}; "
+              f"products {t['counts']['dot_flops_by_dtype']} on {card}")
+        check(abs(pred - peak) <= TOL_PEAK * peak,
+              f"{label} (b) {kind}: predicted peak {pred} is not within "
+              f"{TOL_PEAK:.0%} of the measured {peak}")
+        check(share <= MAX_SHARE,
+              f"{label} (b) {kind}: the step took {dev_ms[1]} ms, under its "
+              f"bound {bound_ms} ms: the count misses work")
+        del plan, real, res, step
+    release(torch)
+
+    # (c) the kernels under the counter, on the card and on CPU copies
+    from repro_torch.core.store import quantize_rows
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    Q, D, N = 32, 384, N_STORE
+    (q8, qs), (x8, xs) = (quantize_rows(rng.standard_normal(
+        (n, D), dtype=np.float32)) for n in (Q, N))
+    calls = {
+        "mips_topk": (lambda q, x: ops.mips_topk(q, x, 1, 512),
+                      (unit_rows(torch, g, Q, D, dev),
+                       unit_rows(torch, g, N, D, dev).half())),
+        "mips_topk_int8": (lambda *a: ops.mips_topk_int8(*a, 1, 512),
+                           tuple(torch.from_numpy(a).to(dev)
+                                 for a in (q8, qs, x8, xs))),
+        "decode_attention": (lambda *a: ops.decode_attention(*a, 8), (
+            torch.randn((4, 16, 128), generator=g, device=dev),
+            torch.randn((4, 160, 8, 128), generator=g,
+                        device=dev).bfloat16(),
+            torch.randn((4, 160, 8, 128), generator=g,
+                        device=dev).bfloat16(),
+            torch.full((4,), 100, dtype=torch.int32, device=dev))),
+        "flash_attention": (lambda *a: ops.flash_attention(*a, False), tuple(
+            torch.randn(sh, generator=g, device=dev)
+            for sh in ((256, 64, 6, 64), (256, 64, 6, 64),
+                       (256, 64, 6, 64)))),
+    }
+    for name, (fn, ins) in calls.items():
+        ops.reset_launch_counts()
+        on_card = costs.fn_costs(fn, *ins)
+        launched = ops.launch_counts()
+        on_cpu = costs.fn_costs(fn, *(t.cpu() for t in ins))
+        out[f"dry run {name}"] = launched
+        keys = ("dot_flops", "bytes_min")
+        print(f"{label} (c) {name}: on the card {[on_card[k] for k in keys]}"
+              f" (launches {launched[name]}), on the CPU "
+              f"{[on_cpu[k] for k in keys]} (dot_flops, bytes_min); credit "
+              f"{on_card['kernels'][name]}")
+        check(launched[name] == 1 and sum(launched.values()) == 1,
+              f"{label} (c) {name}: launches {launched}")
+        check(all(on_card[k] == on_cpu[k] for k in keys),
+              f"{label} (c) {name}: the card counts {on_card} and the CPU "
+              f"{on_cpu}")
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3308,6 +3528,11 @@ def main():
     t18 = time.perf_counter()
     counts.update(phase_examples(torch, np, args, card, dev))
     print(f"examples: phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    # -- phase 19: the dry run's predictions against the card ----------------
+    t19 = time.perf_counter()
+    counts.update(phase_dryrun(torch, np, args, card, dev))
+    print(f"dry run: phase 19 took {time.perf_counter() - t19:.1f} s")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import parts
+from repro_torch.launch import costs
 from repro_torch.models.convert import tree_leaves
 
 BUCKET_BYTES = 256 << 20     # one all-reduce per this many gradient bytes
@@ -208,11 +209,20 @@ class _PodSum(torch.autograd.Function):
     def forward(ctx, x):
         y = x.detach().clone()
         dist.all_reduce(y)
+        _census(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         return g
+
+
+def _census(t):
+    """Report one all-reduce of ``t`` over the pods to an active cost
+    counter (``launch/costs.py``)."""
+    c = costs.active()
+    if c is not None:
+        c.census.record("all-reduce", "pod", n_pods(), 2 * costs.nbytes(t))
 
 
 def pod_sum(x):
@@ -250,9 +260,11 @@ def all_reduce_grads(grads):
             if len(group) == 1 and group[0].is_contiguous():
                 flat = group[0]          # a leaf past the bucket size alone
                 dist.all_reduce(flat)
+                _census(flat)
             else:
                 flat = torch.cat([t.reshape(-1) for t in group])
                 dist.all_reduce(flat)
+                _census(flat)
                 off = 0
                 for t in group:
                     t.copy_(flat[off:off + t.numel()].view_as(t))

@@ -29,15 +29,27 @@ The collectives the reference's local functions use (``all_gather``,
 values and are plain tensor ops across the shard list (``.to(device)``,
 ``cat``/``amax``/``sum``), which autograd differentiates. A local
 function therefore runs in phases: local work, a collective, local work.
+
+**Counting** (``launch/costs.py``). Under an active cost counter,
+``smap`` and ``shard`` run each position as the counter's current one
+(every shard of a meta mesh lies on the one ``meta`` device, so the
+position cannot be read off the device), ``smap`` marks a whole tensor
+it hands to a position as held there, and each collective reports its
+groups to the counter's census, each member's result held at that
+member, its own copies and sums not counted as compute. With no counter
+active these hooks cost one test and change no value.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.launch import costs
 
 TP, FSDP, BATCH, SEQ, EP, REP = "TP", "FSDP", "BATCH", "SEQ", "EP", "REP"
 
@@ -419,13 +431,27 @@ def shard(t: torch.Tensor, spec, mesh) -> Sharded:
                              f"over {e} ({n} shards)")
         sizes.append(t.shape[d] // n)
     out = np.empty(mesh.devices.shape, dtype=object)
+    counter = costs.active()
     for pos in np.ndindex(out.shape):
         c = _coord(mesh, pos)
         idx = tuple(slice(_index(mesh, c, _axes(e)) * s,
                           (_index(mesh, c, _axes(e)) + 1) * s)
                     for e, s in zip(spec, sizes))
-        out[pos] = t[idx].to(mesh.devices[pos], copy=True).contiguous()
+        with _at(counter, mesh, pos):
+            out[pos] = t[idx].to(mesh.devices[pos], copy=True).contiguous()
     return Sharded(mesh, out, spec)
+
+
+def _flat(mesh, pos) -> int:
+    """A mesh position's row-major index."""
+    return int(np.ravel_multi_index(pos, mesh.devices.shape))
+
+
+def _at(counter, mesh, pos, quiet=False):
+    """The counter's context for ``pos`` (nothing without a counter);
+    ``quiet``: its ops not counted (a collective's own)."""
+    return contextlib.nullcontext() if counter is None else \
+        counter.at(_flat(mesh, pos), quiet)
 
 
 class ShardCtx:
@@ -458,9 +484,16 @@ def smap(fn, mesh, *args):
         return a
 
     outs = np.empty(mesh.devices.shape, dtype=object)
+    counter = costs.active()
     for pos in np.ndindex(outs.shape):
         ctx = ShardCtx(mesh, pos)
-        outs[pos] = fn(ctx, *(local(a, pos, ctx.device) for a in args))
+        with _at(counter, mesh, pos):
+            loc = [local(a, pos, ctx.device) for a in args]
+            if counter is not None:     # a whole tensor is copied here
+                for a in loc:
+                    for _, t in costs.placed_tensors(a):
+                        counter.hold(t, _flat(mesh, pos))
+            outs[pos] = fn(ctx, *loc)
     first = outs.flat[0]
     if not isinstance(first, tuple):
         return Sharded(mesh, outs)
@@ -486,33 +519,41 @@ def _groups(mesh, axes):
     return [[p for _, p in sorted(g)] for g in groups.values()]
 
 
-def _reduce(x: Sharded, axes, op) -> Sharded:
+def _reduce(x: Sharded, axes, op, kind: str) -> Sharded:
+    """``op`` over each group's shards on its first member's device, the
+    result copied to every member; ``kind`` names the collective to a
+    cost counter."""
     mesh = x.mesh
     out = np.empty(x.shards.shape, dtype=object)
+    counter = costs.active()
     for g in _groups(mesh, axes):
         d0 = mesh.devices[g[0]]
-        r = op([x.shards[p].to(d0) for p in g])
-        for p in g:
-            out[p] = r.to(mesh.devices[p])
+        with _at(counter, mesh, g[0], quiet=True):
+            r = op([x.shards[p].to(d0) for p in g])
+            for p in g:
+                out[p] = r.to(mesh.devices[p])
+        if counter is not None:
+            counter.collective(kind, axes, [(_flat(mesh, p), out[p])
+                                            for p in g])
     return Sharded(mesh, out)
 
 
 def all_gather(x: Sharded, axes, dim: int) -> Sharded:
     """Every shard's blocks of the group, concatenated along ``dim`` in
     axis order (``jax.lax.all_gather(..., tiled=True)``)."""
-    return _reduce(x, axes, lambda ts: torch.cat(ts, dim))
+    return _reduce(x, axes, lambda ts: torch.cat(ts, dim), "all_gather")
 
 
 def pmax(x: Sharded, axes) -> Sharded:
-    return _reduce(x, axes, lambda ts: torch.stack(ts).amax(0))
+    return _reduce(x, axes, lambda ts: torch.stack(ts).amax(0), "pmax")
 
 
 def psum(x: Sharded, axes) -> Sharded:
-    return _reduce(x, axes, lambda ts: torch.stack(ts).sum(0))
+    return _reduce(x, axes, lambda ts: torch.stack(ts).sum(0), "psum")
 
 
 def pmean(x: Sharded, axes) -> Sharded:
-    return _reduce(x, axes, lambda ts: torch.stack(ts).mean(0))
+    return _reduce(x, axes, lambda ts: torch.stack(ts).mean(0), "pmean")
 
 
 def psum_replicas(x: Sharded) -> Sharded:
@@ -533,11 +574,16 @@ def all_to_all(x: Sharded, axes, split_dim: int = 0,
     leading dim of n, ``jax.lax.all_to_all(..., tiled=False)``)."""
     mesh = x.mesh
     out = np.empty(x.shards.shape, dtype=object)
+    counter = costs.active()
     for g in _groups(mesh, axes):
         n = len(g)
         chunks = [torch.chunk(x.shards[p], n, split_dim) for p in g]
         for j, pj in enumerate(g):
             dev = mesh.devices[pj]
-            out[pj] = torch.cat([chunks[i][j].to(dev) for i in range(n)],
-                                concat_dim)
+            with _at(counter, mesh, pj, quiet=True):
+                out[pj] = torch.cat([chunks[i][j].to(dev) for i in range(n)],
+                                    concat_dim)
+        if counter is not None:
+            counter.collective("all_to_all", axes,
+                               [(_flat(mesh, p), out[p]) for p in g])
     return Sharded(mesh, out)

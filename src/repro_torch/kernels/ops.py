@@ -4,7 +4,15 @@ and one launch counter per kernel.
 Each wrapper launches its hand-written kernel when its tensors lie on a
 CUDA device and raises if the kernel cannot run; it takes the kernel's
 plain PyTorch version only because its tensors lie on the CPU (the tests
-here). There is no fallback from a CUDA tensor to the plain version.
+here) or on the meta device, which has no data and computes shapes only
+(the dry run, ``launch/dryrun.py``). There is no fallback from a CUDA
+tensor to the plain version, and tensors on two devices raise.
+
+Under an active cost counter (``launch/costs.py``) each wrapper credits
+its call with the function's own work (``*_work`` below): its FLOPs (int8
+ops for B2) and its least bytes, each operand read once and its output
+written once; the counter then skips the ops inside, so a call counts the
+same on the CPU, on meta and on the card.
 
 The kernels are CUDA C++ for ``sm_90a`` in ``src/repro_torch/csrc``. At
 first use each source is compiled by ``nvcc`` into its own shared library
@@ -17,6 +25,7 @@ as does a checkout whose ``build/`` cannot be written.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +41,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mips_topk as _mt
 from repro_torch.kernels import mips_topk_int8 as _mt8
+from repro_torch.launch import costs as _costs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -166,13 +176,83 @@ def reset_launch_counts():
 
 def _on_cuda(*ts) -> bool:
     """True when every tensor is on CUDA, False when every one is on the
-    CPU; a mix is an error, never a fallback."""
+    CPU or every one on meta (shapes only); a mix is an error, never a
+    fallback."""
     if all(t.is_cuda for t in ts):
         return True
-    if all(t.device.type == "cpu" for t in ts):
+    if all(t.device.type == "cpu" for t in ts) or \
+            all(t.device.type == "meta" for t in ts):
         return False
-    raise ValueError("kernel inputs must all lie on one CUDA device or all "
-                     "on the CPU, got " + ", ".join(str(t.device) for t in ts))
+    raise ValueError("kernel inputs must all lie on one CUDA device, all "
+                     "on the CPU or all on meta, got "
+                     + ", ".join(str(t.device) for t in ts))
+
+
+def _launch(wrapper, ts, kernel, plain, work):
+    """``kernel()`` when the tensors ``ts`` lie on CUDA (one launch
+    counted), else ``plain()``; under an active cost counter the call is
+    credited with ``work()`` = (FLOPs, bytes, product dtype)."""
+    cuda = _on_cuda(*ts)
+    c = _costs.active()
+    with contextlib.nullcontext() if c is None else \
+            c.kernel(wrapper.__name__, work):
+        if not cuda:
+            return plain()
+        out = kernel()
+        _count(wrapper)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Each kernel's own work: (FLOPs, least bytes)
+# ---------------------------------------------------------------------------
+
+
+def _nb(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def mips_work(q, x, k: int, tile_n: int, *scales):
+    """B1 and B2 (the tile scan): 2 Q N D, reading q, x and B2's
+    ``scales`` once and writing each tile's k candidates (f32 value,
+    int32 id)."""
+    (Q, D), N = q.shape, x.shape[0]
+    return 2 * Q * N * D, _nb(q, x, *scales) + -(-N // tile_n) * Q * k * 8
+
+
+def decode_work(q, k, v, lengths):
+    """B3: 2 D (q.k) + 2 D (p.v) per attended (row, head) pair, reading q,
+    the lengths and the attended rows of k and v once and writing the f32
+    output. The attended rows are ``min(lengths[b], T - 1) + 1`` of each
+    sequence where the lengths are known; on meta, which holds none, all
+    T."""
+    B, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    att = B * T if lengths.device.type == "meta" else \
+        int((lengths.clamp(max=T - 1) + 1).sum())
+    kv = att * Hkv * (k.shape[3] * k.element_size() +
+                      v.shape[3] * v.element_size())
+    return 2 * att * Hq * (D + v.shape[3]), _nb(q, lengths) + kv + \
+        B * Hq * v.shape[3] * 4
+
+
+def flash_pairs(S: int, T: int, causal: bool) -> int:
+    """(query, key) pairs a flash forward scores: all S T, or the causal
+    lower triangle (key j <= query i)."""
+    if not causal:
+        return S * T
+    n = min(S, T)
+    return n * (n + 1) // 2 + (S - n) * T
+
+
+def flash_work(q, k, v, causal: bool):
+    """B4: 2 D (q.k) + 2 Dv (p.v) per scored pair and head, reading q, k
+    and v once and writing the output (q's dtype, Dv wide)."""
+    B, S, Hq, D = q.shape
+    Dv = v.shape[3]
+    pairs = flash_pairs(S, k.shape[1], causal)
+    return 2 * B * Hq * pairs * (D + Dv), _nb(q, k, v) + \
+        B * S * Hq * Dv * q.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -206,12 +286,12 @@ def mips_topk(q: torch.Tensor, x: torch.Tensor, k: int, tile_n: int = 512):
     GLOBAL idx (Q,k) int32) in (value desc, index asc) order."""
     k = int(k)
     tile_n = _clamp_tile(x.shape[0], k, int(tile_n))
-    if _on_cuda(q, x):
-        vals, idx = _mt.mips_topk_tiles_cuda(_lib("mips_topk"), q, x, k,
-                                             tile_n)
-        _count(mips_topk)
-    else:
-        vals, idx = _mt.mips_topk_tiles_plain(q, x, k, tile_n)
+
+    vals, idx = _launch(
+        mips_topk, (q, x),
+        lambda: _mt.mips_topk_tiles_cuda(_lib("mips_topk"), q, x, k, tile_n),
+        lambda: _mt.mips_topk_tiles_plain(q, x, k, tile_n),
+        lambda: mips_work(q, x, k, tile_n) + (q.dtype,))
     return _combine_tiles(vals, idx, k)
 
 
@@ -222,37 +302,38 @@ def mips_topk_int8(q, q_scale, x, x_scale, k: int, tile_n: int = 512):
     combine as ``mips_topk``; bit-for-bit against ref.mips_topk_int8_ref."""
     k = int(k)
     tile_n = _clamp_tile(x.shape[0], k, int(tile_n))
-    if _on_cuda(q, q_scale, x, x_scale):
-        vals, idx = _mt8.mips_topk_int8_tiles_cuda(
-            _lib("mips_topk_int8"), q, q_scale, x, x_scale, k, tile_n)
-        _count(mips_topk_int8)
-    else:
-        vals, idx = _mt8.mips_topk_int8_tiles_plain(q, q_scale, x, x_scale,
-                                                    k, tile_n)
+
+    vals, idx = _launch(
+        mips_topk_int8, (q, q_scale, x, x_scale),
+        lambda: _mt8.mips_topk_int8_tiles_cuda(
+            _lib("mips_topk_int8"), q, q_scale, x, x_scale, k, tile_n),
+        lambda: _mt8.mips_topk_int8_tiles_plain(q, q_scale, x, x_scale, k,
+                                                tile_n),
+        lambda: mips_work(q, x, k, tile_n, q_scale, x_scale) + (q.dtype,))
     return _combine_tiles(vals, idx, k)
 
 
 def decode_attention(q, k, v, lengths, n_splits: int = 8):
     """q: (B,Hq,D) f32; k,v: (B,T,Hkv,D) f32/bf16; lengths (B,) ->
     (B,Hq,D) f32 attending [0, lengths[b]] inclusive."""
-    if _on_cuda(q, k, v, lengths):
-        o = _da.decode_attention_cuda(_lib("decode_attention"), q, k, v,
-                                      lengths, int(n_splits))
-        _count(decode_attention)
-        return o
-    return _da.decode_attention_plain(q, k, v, lengths)
+    return _launch(
+        decode_attention, (q, k, v, lengths),
+        lambda: _da.decode_attention_cuda(_lib("decode_attention"), q, k, v,
+                                          lengths, int(n_splits)),
+        lambda: _da.decode_attention_plain(q, k, v, lengths),
+        lambda: decode_work(q, k, v, lengths) + (q.dtype,))
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """Model layout: q (B,S,Hq,D); k (B,T,Hkv,D), v (B,T,Hkv,Dv), Dv <= D
     -> (B,S,Hq,Dv); causal masks key j > query i (offset 0), non-causal
     attends to all T keys."""
-    if _on_cuda(q, k, v):
-        o = _fa.flash_attention_cuda(_lib("flash_attention"), q, k, v,
-                                     causal)
-        _count(flash_attention)
-        return o
-    return _fa.flash_attention_plain(q, k, v, causal)
+    return _launch(
+        flash_attention, (q, k, v),
+        lambda: _fa.flash_attention_cuda(_lib("flash_attention"), q, k, v,
+                                         causal),
+        lambda: _fa.flash_attention_plain(q, k, v, causal),
+        lambda: flash_work(q, k, v, causal) + (q.dtype,))
 
 
 _WRAPPERS = (mips_topk, mips_topk_int8, decode_attention, flash_attention)

@@ -1275,3 +1275,41 @@ def test_gpu_mesh_checkpoint_restores_across_meshes_bit_for_bit(cuda,
                                                       st["opt"], batch[1])
     np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
                                rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mips_topk", "mips_topk_int8",
+                                  "decode_attention", "flash_attention"])
+def test_gpu_kernel_credit_same_on_card_and_cpu(cuda, name):
+    """Under the cost counter (``launch/costs.py``) a wrapper call credits
+    the kernel's own work: one launch on the card, the plain version on
+    the CPU, and the same FLOPs and bytes either way (B3 at ragged
+    lengths: the attended rows)."""
+    from repro_torch.launch import costs
+    g = torch.Generator().manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=g)          # noqa: E731
+    q8, qs = (torch.from_numpy(a) for a in quantize_rows(
+        np.random.default_rng(0).standard_normal((5, 100), np.float32)))
+    x8, xs = (torch.from_numpy(a) for a in quantize_rows(
+        np.random.default_rng(1).standard_normal((700, 100), np.float32)))
+    calls = {
+        "mips_topk": (lambda q, x: ops.mips_topk(q, x, 7, 512),
+                      (r(5, 100), r(700, 100).half())),
+        "mips_topk_int8": (lambda *a: ops.mips_topk_int8(*a, 7, 512),
+                           (q8, qs, x8, xs)),
+        "decode_attention": (ops.decode_attention, (
+            r(3, 8, 64), r(3, 90, 4, 64).bfloat16(),
+            r(3, 90, 4, 64).bfloat16(),
+            torch.tensor([5, 89, 200], dtype=torch.int32))),
+        "flash_attention": (lambda *a: ops.flash_attention(*a, True),
+                            (r(2, 70, 6, 64), r(2, 70, 2, 64),
+                             r(2, 70, 2, 64))),
+    }
+    fn, ins = calls[name]
+    ops.reset_launch_counts()
+    on_card = costs.fn_costs(fn, *(t.to(cuda) for t in ins))
+    assert ops.launch_counts()[name] == 1
+    on_cpu = costs.fn_costs(fn, *ins)
+    assert on_card["kernels"] == on_cpu["kernels"]
+    for key in ("dot_flops", "bytes_min", "flops", "bytes"):
+        assert on_card[key] == on_cpu[key], key
