@@ -417,7 +417,7 @@ class BatchedRuntime:
 
     def pipeline_stats(self) -> Optional[dict]:
         """Snapshot of the staged pipeline's accounting (per-stage queue
-        depth + wait, hit/miss latency percentiles, decode-slot reuse);
+        depth + wait, decode-slot reuse);
         None if serve() was never started. Survives ``stop_serving``."""
         p = self._pipeline or self._last_pipeline
         return p.stats_snapshot() if p is not None else None

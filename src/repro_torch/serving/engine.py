@@ -28,6 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.tokenizer import EOS
 from repro_torch.distributed.sharding import Sharded, shard
 from repro_torch.models import model as M
@@ -93,11 +94,14 @@ class Engine:
         the chunk, toks (B, chunk))."""
         toks = []
         for _ in range(self.chunk):
+            ts = trace.start()
             logits, cache = M.decode_step(self.cfg, self.params, token, cache,
                                           cache_len, self.run or M.RunCfg(),
                                           live=live)
             nxt = sample_token(logits[:, -1, :], generator, temperature)
             token = torch.where(live[:, None], nxt[:, None], token)
+            if ts is not None:
+                trace.end(ts, "decode.step", cache_len=cache_len)
             toks.append(token[:, 0])
             cache_len += 1
         return token, cache, cache_len, torch.stack(toks, dim=1)
@@ -219,6 +223,8 @@ class Request:
     slot: int = -1
     t_done: float = 0.0       # perf_counter stamp when the slot retired
     chunks: int = 0           # decode chunks this request was live for
+    t_queued: float = 0.0     # perf_counter stamp when it joined the decode
+    #                           queue (0: not stamped); ends ``decode.queue``
 
 
 class BatchScheduler:
@@ -256,6 +262,8 @@ class BatchScheduler:
         self.slot_uses = [0] * batch_size   # admissions per slot (reuse)
 
     def submit(self, req: Request):
+        if not req.t_queued:
+            req.t_queued = trace.now() or 0.0
         self.waiting.append(req)
 
     @property
@@ -305,9 +313,15 @@ class BatchScheduler:
             slot = free.pop(0)
             self.admitted += 1
             self.slot_uses[slot] += 1
+            ts = trace.start()
+            if ts is not None and req.t_queued:
+                trace.add("decode.queue", req.t_queued, ts[0], rid=req.rid)
             logits, one_cache = self.e._prefill(self.e.tokens(ids))
             self.e._write_slot(self.cache, one_cache, slot)
             first = int(torch.argmax(logits[0, -1]))
+            if ts is not None:
+                trace.end(ts, "admission.prefill", rid=req.rid,
+                          prompt_len=len(ids))
             req.out_ids.append(first)
             req.slot = slot
             self.token[slot, 0] = first
@@ -330,6 +344,7 @@ class BatchScheduler:
 
     def step_chunk(self):
         self._admit()
+        ts = trace.start()
         self._retire()
         if not self.live.any():
             return False
@@ -341,18 +356,25 @@ class BatchScheduler:
             live)
         self.cache_len -= 1
         toks = toks.cpu().numpy()
+        kept = None if ts is None else {}     # tokens kept per rid
         for slot in range(self.B):
             r = self.reqs[slot]
             if r is None:
                 continue
             r.chunks += 1
+            n = len(r.out_ids)
             for t in toks[slot]:
                 if len(r.out_ids) >= r.max_new:
                     break
                 r.out_ids.append(int(t))
                 if t == EOS:    # kept, so ``_retire`` sees it
                     break
+            if kept is not None:
+                kept[r.rid] = len(r.out_ids) - n
         self._retire()
+        if ts is not None:
+            trace.end(ts, "decode.chunk", slots=self.B, steps=self.e.chunk,
+                      tokens=kept)
         return True
 
     def run_to_completion(self, max_chunks=1000):

@@ -1,6 +1,7 @@
 """Admission + staged serving pipeline for the batched StorInfer runtime
 (port of the JAX package's ``serving/scheduler.py``; the code is
-framework-free, and the decode stage drives the port's ``BatchScheduler``).
+framework-free apart from its spans (``repro_torch.trace``), and the
+decode stage drives the port's ``BatchScheduler``).
 
 Serving millions of users means queries arrive one at a time but must be
 *processed* together: one embedding batch, one MIPS search batch through
@@ -46,8 +47,8 @@ backpressure on its producer instead of buffering unboundedly —
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -56,16 +57,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import trace
+
 
 @dataclasses.dataclass
 class Submission:
     """One queued query, its per-request generation knobs, and the
-    per-stage stamps the pipeline fills in as it flows through (the
-    per-submission timing the latency percentiles are computed from)."""
+    per-stage stamps the pipeline fills in as it flows through. ``rid``
+    is unique in its pipeline: the decode stage's ``Request.rid`` and the
+    request id of its spans (``repro_torch.trace``)."""
     text: str
     max_new: int = 32
     temperature: Optional[float] = None
     future: Future = dataclasses.field(default_factory=Future)
+    rid: int = -1
     # pipeline routing + timing (stamped by the stages)
     t_admit: float = 0.0      # perf_counter at submit()
     t_search: float = 0.0     # search stage resolved the score
@@ -218,16 +223,6 @@ class MicroBatcher:
 # ---------------------------------------------------------------------------
 
 
-def _pct_ms(lat_s) -> Optional[dict]:
-    """p50/p99/mean (ms) over a latency window; None when empty."""
-    if not lat_s:
-        return None
-    a = np.asarray(lat_s, np.float64) * 1e3
-    return {"n": int(a.size), "p50_ms": float(np.percentile(a, 50)),
-            "p99_ms": float(np.percentile(a, 99)),
-            "mean_ms": float(a.mean())}
-
-
 @dataclasses.dataclass
 class StageStats:
     """Per-stage accounting: items through the stage, cumulative time
@@ -243,15 +238,12 @@ class StageStats:
 
 
 class PipelineStats:
-    """Thread-safe pipeline accounting: per-stage queue depth + wait, and
-    rolling hit/miss end-to-end latency windows for percentiles."""
+    """Thread-safe pipeline accounting: per-stage queue depth + wait."""
 
-    def __init__(self, window: int = 4096):
+    def __init__(self):
         self.stages: Dict[str, StageStats] = {
             "search": StageStats(), "resolve": StageStats(),
             "decode": StageStats(), "writeback": StageStats()}
-        self.hit_lat = collections.deque(maxlen=window)
-        self.miss_lat = collections.deque(maxlen=window)
         self.search_batches = 0
         self.writeback_errors = 0
         self._lock = threading.Lock()
@@ -263,10 +255,6 @@ class PipelineStats:
             st.wait_s += wait_s
             st.max_depth = max(st.max_depth, depth)
 
-    def record_latency(self, hit: bool, latency_s: float):
-        with self._lock:
-            (self.hit_lat if hit else self.miss_lat).append(latency_s)
-
     def snapshot(self, depths: Optional[Dict[str, int]] = None) -> dict:
         """Plain-dict view (the ``SystemStats.pipeline`` payload)."""
         with self._lock:
@@ -277,8 +265,6 @@ class PipelineStats:
                            "max_depth": st.max_depth,
                            "depth": (depths or {}).get(name, 0)}
                     for name, st in self.stages.items()},
-                "hit": _pct_ms(self.hit_lat),
-                "miss": _pct_ms(self.miss_lat),
                 "search_batches": self.search_batches,
                 "writeback_errors": self.writeback_errors,
             }
@@ -321,6 +307,7 @@ class ServingPipeline:
         self.decode_slots = decode_slots
         self.async_writeback = async_writeback
         self.stats = PipelineStats()
+        self._rids = itertools.count()   # Submission.rid
         self._admit_q: "queue.Queue[Optional[Submission]]" = \
             queue.Queue(maxsize=queue_depth)
         self._resolve_q: "queue.Queue[Optional[Submission]]" = \
@@ -405,7 +392,7 @@ class ServingPipeline:
             raise RuntimeError("ServingPipeline is not running; "
                                "call start()")
         sub = Submission(text=text, max_new=max_new,
-                         temperature=temperature)
+                         temperature=temperature, rid=next(self._rids))
         sub.t_admit = time.perf_counter()
         # backpressure put that cannot strand the caller: while the
         # pipeline runs this blocks like a plain put, but a producer
@@ -489,6 +476,7 @@ class ServingPipeline:
             self.stats.record_wait(
                 "search", sum(now - s.t_admit for s in batch),
                 self._admit_q.qsize() + len(batch), n=len(batch))
+            ts = trace.start()
             try:
                 scores, rows, embs, _ = self.rt._search_batch(
                     [s.text for s in batch])
@@ -496,6 +484,9 @@ class ServingPipeline:
                 for s in batch:
                     _set_future_exception(s.future, e)
                 continue
+            if ts is not None:
+                trace.end(ts, "search.batch", rids=[s.rid for s in batch],
+                          n=len(batch))
             t = time.perf_counter()
             embs = np.asarray(embs)
             with self.rt._stats_lock:
@@ -572,18 +563,15 @@ class ServingPipeline:
         sched = BatchScheduler(self.rt.engine,
                                batch_size=self.decode_slots)
         self.scheduler = sched
-        next_rid = 0
         sentinel = False
 
         def admit(s: Submission):
-            nonlocal next_rid
             now = time.perf_counter()
             self.stats.record_wait("decode", now - s.t_routed,
                                    self._decode_q.qsize() + 1)
-            req = Request(rid=next_rid, prompt=s.text, max_new=s.max_new,
-                          temperature=s.temperature)
-            pending[next_rid] = s
-            next_rid += 1
+            req = Request(rid=s.rid, prompt=s.text, max_new=s.max_new,
+                          temperature=s.temperature, t_queued=s.t_routed)
+            pending[s.rid] = s
             sched.submit(req)
 
         while True:
@@ -687,7 +675,6 @@ class ServingPipeline:
             st.queries += 1
             st.hits += int(qr.hit)
             st.misses += int(not qr.hit)
-        self.stats.record_latency(qr.hit, qr.latency_s)
 
 
 def _cancel_future(f: Future):
