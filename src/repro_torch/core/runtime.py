@@ -21,7 +21,8 @@ Two runtimes share that structure:
       hit-resolve → decode → write-back, each stage its own worker behind
       a bounded queue. Hits resolve the moment the MIPS search returns;
       misses flow into one persistent continuous-batching
-      ``BatchScheduler`` whose freed slots are refilled between waves;
+      ``BatchScheduler`` whose freed slots are refilled at the next chunk
+      boundary on a dense GQA model, between waves on the others;
       §3.1 ``add_misses`` write-back + ``flush_and_rebuild`` run off the
       critical path with the index swapped atomically. ``query_batch``
       stays as the synchronous compatibility path over the same stage

@@ -285,26 +285,47 @@ def cross_fullseq(cfg, p, x, enc_out, run=KERNEL):
 # ---------------------------------------------------------------------------
 
 
-def _write(c, pos: int, new, live):
-    """Write ``new`` (B, ...) at position ``pos`` of the cache slice ``c``
-    (B, M, ...) in place; returns what a dead slot must get back (None
-    when every slot is live)."""
-    old = None if live is None else c[:, pos].clone()
-    c[:, pos] = new.to(c.dtype)
+def _per_row(cache_len) -> bool:
+    """Whether ``cache_len`` gives each row its own position (a (B,)
+    tensor) rather than one for the batch."""
+    return torch.is_tensor(cache_len) and cache_len.dim() == 1
+
+
+def _write(c, at, new, live):
+    """Write ``new`` (B, ...) at the index ``at`` (``_decode_pos``) of the
+    cache slice ``c`` (B, M, ...) in place; returns what a dead slot must
+    get back (None when every slot is live)."""
+    if torch.is_tensor(at):     # per-row positions: along dim 1
+        old = None if live is None else c.gather(1, at)
+        c.scatter_(1, at, new.to(c.dtype)[:, None])
+        return old
+    old = None if live is None else c[at].clone()
+    c[at] = new.to(c.dtype)
     return old
 
 
-def _restore(c, pos: int, old, live):
-    """Put a dead slot's entry at ``pos`` back after its step attended it."""
-    if live is not None:
-        keep = live.view((-1,) + (1,) * (old.dim() - 1))
-        c[:, pos] = torch.where(keep, c[:, pos], old)
+def _restore(c, at, old, live):
+    """Put a dead slot's entry at ``at`` back after its step attended it."""
+    if live is None:
+        return
+    keep = live.view((-1,) + (1,) * (old.dim() - 1))
+    if torch.is_tensor(at):
+        c.scatter_(1, at, torch.where(keep, c.gather(1, at), old))
+    else:
+        c[at] = torch.where(keep, c[at], old)
 
 
-def _decode_pos(cache_len: int, c) -> int:
-    # a write past the end lands on the last slot, as the reference's
-    # clamping dynamic_update_slice does
-    return min(cache_len, c.shape[1] - 1)
+def _decode_pos(cache_len, c):
+    """The index of the write position in the cache slice ``c`` (B, M,
+    ...): ``c[:, cache_len]``, or with per-row positions each row's own,
+    as a ``gather``/``scatter_`` index along dim 1. A write past the end
+    lands on the last slot, as the reference's clamping
+    dynamic_update_slice does."""
+    if not _per_row(cache_len):
+        return slice(None), min(cache_len, c.shape[1] - 1)
+    B = c.shape[0]
+    return cache_len.clamp(max=c.shape[1] - 1).view(
+        (B, 1) + (1,) * (c.dim() - 2)).expand((B, 1) + tuple(c.shape[2:]))
 
 
 def _seq_sharded(run) -> bool:
@@ -318,18 +339,22 @@ def _seq_sharded(run) -> bool:
     return True
 
 
-def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None,
+def gqa_decode(cfg, p, x, kc, vc, cache_len, lengths, live=None,
                mrope_positions=None, run=RunCfg()):
     """x (B,1,d); kc/vc (B,M,Hkv,Dh), written in place at ``cache_len``
-    (put back afterwards for the rows where ``live`` is False). M-RoPE
-    positions default to ``cache_len`` on all three streams, as in the
-    reference. ``run.decode_attn="seq_sharded"``: kc/vc are ``Sharded``
-    over ``run.seq_axis``. Returns out (B,1,d)."""
+    (put back afterwards for the rows where ``live`` is False): an int,
+    or a (B,) long tensor of each row's own position. M-RoPE positions
+    default to ``cache_len`` on all three streams, as in the reference.
+    ``run.decode_attn="seq_sharded"``: kc/vc are ``Sharded`` over
+    ``run.seq_axis`` (int ``cache_len`` only). Returns out (B,1,d)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     Hq = cfg.n_heads
-    positions = torch.full((B, 1), cache_len, dtype=torch.long,
-                           device=x.device)
+    if not _per_row(cache_len):
+        positions = torch.full((B, 1), cache_len, dtype=torch.long,
+                               device=x.device)
+    else:
+        positions = cache_len[:, None]
     if mrope_positions is None and cfg.rope_kind == "mrope":
         mrope_positions = positions[None].expand(3, B, 1)
     q, k, v = Lyr.qkv(cfg, p, x, positions, mrope_positions)
@@ -338,12 +363,12 @@ def gqa_decode(cfg, p, x, kc, vc, cache_len: int, lengths, live=None,
             q, k, v, kc, vc, cache_len, mesh=run.mesh, seq_axis=run.seq_axis,
             batch_axes=run.batch_axes, live=live)
     else:
-        pos = _decode_pos(cache_len, kc)
-        olds = [_write(c, pos, new[:, 0], live)
+        at = _decode_pos(cache_len, kc)
+        olds = [_write(c, at, new[:, 0], live)
                 for c, new in ((kc, k), (vc, v))]
         out = ops.decode_attention(q[:, 0], kc, vc, lengths, DECODE_SPLITS)
         for c, old in zip((kc, vc), olds):
-            _restore(c, pos, old, live)
+            _restore(c, at, old, live)
     # the reference's P.V einsum yields the cache dtype (bf16 for the
     # batched cache) before the f32 output projection
     out = out.to(kc.dtype).to(x.dtype)
@@ -382,12 +407,12 @@ def mla_decode(cfg, p, x, ckv_c, krope_c, cache_len: int, live=None,
             cache_len, scale, mesh=run.mesh, seq_axis=run.seq_axis,
             batch_axes=run.batch_axes, live=live)
         return Mla.absorbed_out(cfg, p, out_c, x.dtype)
-    pos = _decode_pos(cache_len, ckv_c)
-    olds = [_write(ckv_c, pos, ckv_new[:, 0], live),
-            _write(krope_c, pos, krope_new[:, 0, 0], live)]
+    at = _decode_pos(cache_len, ckv_c)
+    olds = [_write(ckv_c, at, ckv_new[:, 0], live),
+            _write(krope_c, at, krope_new[:, 0, 0], live)]
     out_c = Mla.absorbed_attention(q_c, qr, ckv_c, krope_c, cache_len, scale)
     for c, old in zip((ckv_c, krope_c), olds):
-        _restore(c, pos, old, live)
+        _restore(c, at, old, live)
     return Mla.absorbed_out(cfg, p, out_c, x.dtype)
 
 
@@ -460,11 +485,12 @@ def block_fullseq(cfg, p, x, positions, kind="dense", run=KERNEL, *,
     return x + _ffn(cfg, p, x, kind, run), None, kv
 
 
-def block_decode(cfg, p, x, csl, cache_len: int, lengths, live=None,
+def block_decode(cfg, p, x, csl, cache_len, lengths, live=None,
                  kind="dense", mrope_positions=None, run=RunCfg()):
     """One layer, one token; ``csl`` is this layer's cache slice (its
-    leaves without the layer dim), updated in place. ``run`` picks the
-    decode attention and the MoE dispatch."""
+    leaves without the layer dim), updated in place. ``cache_len`` as
+    ``decode_step`` takes it. ``run`` picks the decode attention and the
+    MoE dispatch."""
     if kind == "ssm":
         h, (hs, conv) = Ssm.ssm_decode(
             cfg, p["ssm"], Lyr.rmsnorm(p["ln"], x, cfg.norm_eps), csl["h"],
@@ -723,6 +749,16 @@ def place_cache(cache, run):
     return cache
 
 
+def per_row_positions(cfg, run=RunCfg()) -> bool:
+    """Whether ``decode_step`` takes a (B,) tensor of per-row positions:
+    GQA self-attention on one device. MLA's absorbed decode, the SSM and
+    hybrid families, the encoder-decoder's position table and the
+    seq-sharded decode take one position for the batch."""
+    return (not cfg.use_mla and not cfg.is_encoder_decoder
+            and cfg.family not in ("ssm", "hybrid")
+            and not _seq_sharded(run))
+
+
 def init_cache(cfg, batch, max_len, dtype=None, device="cuda", run=None):
     """Zeros per ``cache_struct`` on ``device``; laid out by
     ``place_cache`` when ``run`` asks for the seq-sharded decode."""
@@ -733,22 +769,33 @@ def init_cache(cfg, batch, max_len, dtype=None, device="cuda", run=None):
         _seq_sharded(run) else cache
 
 
-def decode_step(cfg, params, token, cache, cache_len: int, run=RunCfg(),
+def decode_step(cfg, params, token, cache, cache_len, run=RunCfg(),
                 mrope_positions=None, *, live=None):
     """token (B,1) int; cache per ``cache_struct`` (updated in place);
     cache_len: the position this token is written at (it attends
-    [0, cache_len]). ``live`` (B,) bool keeps the cache rows of dead
-    slots as they were. ``mrope_positions`` (3,B,1): the vlm's position
-    of this token (default ``cache_len`` on every stream). ``run`` picks
-    the decode attention and the MoE dispatch; with
-    ``decode_attn="seq_sharded"`` a cache not yet laid out for it is laid
-    out in place (``place_cache``). Returns (logits (B,1,V), cache)."""
+    [0, cache_len]): an int for every row, or a (B,) long tensor on the
+    token's device with each row's own position, which GQA models on one
+    device take (``per_row_positions``). ``live`` (B,) bool keeps the
+    cache rows of dead slots as they were. ``mrope_positions`` (3,B,1):
+    the vlm's position of this token (default ``cache_len`` on every
+    stream). ``run`` picks the decode attention and the MoE dispatch;
+    with ``decode_attn="seq_sharded"`` a cache not yet laid out for it is
+    laid out in place (``place_cache``). Returns (logits (B,1,V),
+    cache)."""
     B = token.shape[0]
     if _seq_sharded(run):
         place_cache(cache, run)
     x = embed_tokens(cfg, params, token)
-    lengths = torch.full((B,), cache_len, dtype=torch.int32,
-                         device=token.device)
+    if not _per_row(cache_len):
+        lengths = torch.full((B,), cache_len, dtype=torch.int32,
+                             device=token.device)
+    elif not per_row_positions(cfg, run):
+        raise ValueError(f"{cfg.name}: per-row decode positions need GQA "
+                         "attention on one device (a dense, vlm or GQA moe "
+                         "decoder, decode_attn='naive')")
+    else:
+        # a new tensor every step: B3's callers may keep it past the step
+        lengths = cache_len.to(torch.int32, copy=True)
     if cfg.family == "hybrid":
         k_every, inv = cfg.hybrid_attn_every, 0
         for i, lp in enumerate(params["blocks"]):

@@ -12,6 +12,17 @@ Components:
   BatchScheduler  — fixed-slot continuous batching over a shared cache;
                     per-slot cancellation == StorInfer hit-cancellation
 
+``BatchScheduler`` admits in one of two modes. By default in waves of
+equal prompt length, and only while no slot decodes: the batch shares one
+position, the reference's semantics, which ``BatchSession`` and the build
+keep. ``ServingPipeline`` asks for continuous admission where the decode
+rows are independent (``decode_rows_independent``: a dense GQA model on
+one device): each slot keeps its own position, and a waiting request
+takes any free slot at the next chunk boundary. MoE models stay on waves,
+since a token's expert capacity depends on the other rows of its step;
+so do MLA, ssm, hybrid and the seq-sharded decode, which take one
+position for the batch.
+
 PyTorch runs eagerly, so there is nothing to compile; the caches are
 updated in place (see ``models/model.py``). An EOS among a chunk's tokens
 is kept in ``out_ids`` and ends the request in that chunk (the
@@ -86,14 +97,18 @@ class Engine:
                          self.run or M.KERNEL, max_len=self.max_len)
 
     @torch.no_grad()
-    def _decode_chunk(self, token, cache, cache_len: int, generator,
-                      temperature, live):
-        """Runs ``chunk`` decode steps from position ``cache_len``. live:
-        (B,) bool — dead slots decode but their cache writes are masked
-        out (slot freed semantics). Returns (token, cache, cache_len after
-        the chunk, toks (B, chunk))."""
+    def _decode_chunk(self, token, cache, cache_len, generator,
+                      temperature, live, mean_len: int = None):
+        """Runs ``chunk`` decode steps from position ``cache_len``: an int,
+        or a (B,) long tensor on the device with each row's own position
+        (``M.decode_step``), for which ``mean_len``, the host's mean of
+        the live rows' positions, stands in the ``decode.step`` spans.
+        live: (B,) bool — dead slots decode but their cache writes are
+        masked out (slot freed semantics). Returns (token, cache,
+        cache_len after the chunk, toks (B, chunk))."""
         toks = []
-        for _ in range(self.chunk):
+        at = cache_len if mean_len is None else mean_len
+        for i in range(self.chunk):
             ts = trace.start()
             logits, cache = M.decode_step(self.cfg, self.params, token, cache,
                                           cache_len, self.run or M.RunCfg(),
@@ -101,9 +116,9 @@ class Engine:
             nxt = sample_token(logits[:, -1, :], generator, temperature)
             token = torch.where(live[:, None], nxt[:, None], token)
             if ts is not None:
-                trace.end(ts, "decode.step", cache_len=cache_len)
+                trace.end(ts, "decode.step", cache_len=at + i)
             toks.append(token[:, 0])
-            cache_len += 1
+            cache_len = cache_len + 1     # never in place: a new tensor
         return token, cache, cache_len, torch.stack(toks, dim=1)
 
     @torch.no_grad()
@@ -227,26 +242,58 @@ class Request:
     #                           queue (0: not stamped); ends ``decode.queue``
 
 
+def decode_rows_independent(cfg, run=None) -> bool:
+    """Whether a decode step's rows are independent of each other, so a
+    request may join a batch that is mid-decode: a dense GQA model on one
+    device. An MoE layer caps each expert's tokens per call and ranks the
+    assignments in slot order, so a token's experts depend on the other
+    rows of its step: with every slot live, a later slot would drop an
+    assignment whenever the capacity's worth of earlier slots chose the
+    same expert, and continuous admission would change its tokens, not
+    only its speed. MoE models stay on waves until the configuration and
+    its reference state a decode-time capacity. MLA, ssm, hybrid and the
+    seq-sharded decode take one position for the batch."""
+    run = run or M.RunCfg()
+    return (cfg.family == "dense" and not cfg.use_mla
+            and not cfg.n_experts and run.decode_attn != "seq_sharded")
+
+
 class BatchScheduler:
-    """Fixed B slots over one shared batched cache; requests enter in
-    equal-prompt-length waves (prefill -> slot write), leave on
-    EOS/max/cancel. Cancellation is the StorInfer hit path: the slot is
-    freed at the next chunk boundary.
+    """Fixed B slots over one shared batched cache; requests enter by
+    prefill -> slot write and leave on EOS/max/cancel. Cancellation is
+    the StorInfer hit path: the slot is freed at the next chunk boundary.
 
-    Admission is wave-gated: the cache keeps a single shared ``cache_len``,
-    so a new prompt may only be admitted when no slot is mid-decode (a
-    mid-flight admission would reset ``cache_len`` under the live slots)
-    and every prompt admitted into one wave must tokenize to the same
-    length. Mixed-length traffic simply forms multiple waves.
+    Wave admission (the default; the reference's semantics): the cache
+    keeps a single shared ``cache_len``, so a new prompt may only be
+    admitted when no slot is mid-decode (a mid-flight admission would
+    reset ``cache_len`` under the live slots) and every prompt admitted
+    into one wave must tokenize to the same length. Mixed-length traffic
+    simply forms multiple waves.
 
-    The scheduler is PERSISTENT: slots join and leave between waves (a
+    Continuous admission (``continuous=True``, which ``ServingPipeline``
+    asks for where ``decode_rows_independent``): every slot keeps its own
+    position in ``pos``, so at every chunk boundary the head of
+    ``waiting`` is prefilled into each free slot, whatever the prompts'
+    lengths and whether other slots are mid-decode. ``cache_len`` is then
+    the rounded mean of the live slots' positions. Either way a chunk
+    runs one temperature, so a request whose temperature differs from the
+    live slots' waits at the head of ``waiting`` until they drain.
+
+    The scheduler is PERSISTENT: slots join and leave between chunks (a
     freed slot — finished or hit-cancelled — is refilled from ``waiting``
-    as soon as the wave drains); ``waves`` / ``admitted`` / ``slot_uses``
-    account for the reuse."""
+    as soon as the wave drains, or at the next chunk boundary when
+    continuous); ``waves`` (admission rounds) / ``admitted`` /
+    ``slot_uses`` account for the reuse."""
 
-    def __init__(self, engine: Engine, batch_size: int = 4):
+    def __init__(self, engine: Engine, batch_size: int = 4,
+                 continuous: bool = False):
+        if continuous and not M.per_row_positions(engine.cfg,
+                                                  engine.run or M.RunCfg()):
+            raise ValueError(f"{engine.cfg.name}: continuous admission needs "
+                             "per-row decode positions (GQA on one device)")
         self.e = engine
         self.B = batch_size
+        self.continuous = continuous
         self.cache = M.init_cache(engine.cfg, batch_size, engine.max_len,
                                   device=engine.device, run=engine.run)
         self.token = torch.zeros((batch_size, 1), dtype=torch.long,
@@ -254,6 +301,8 @@ class BatchScheduler:
         self.live = np.zeros(batch_size, bool)
         self.reqs: List[Optional[Request]] = [None] * batch_size
         self.cache_len = 0
+        self.pos = np.zeros(batch_size, np.int64)   # per slot (continuous)
+        self.ran = np.zeros(batch_size, bool)       # decoded the last chunk
         self.waiting: List[Request] = []
         self.finished: List[Request] = []
         self.generator = engine.generator(0)
@@ -285,11 +334,17 @@ class BatchScheduler:
                 r.cancelled = True
 
     def _admit(self):
-        if self.live.any():
+        if self.continuous:
+            self._retire()  # a slot freed since the last chunk is free now
+        elif self.live.any():
             return          # wave in flight; next wave starts once it drains
         wave_len = None
         wave_temp = _UNSET = object()
-        free = list(range(self.B))
+        for r in self.reqs:     # continuous: the live slots' temperature
+            if r is not None:   # holds the next chunk too
+                wave_temp = r.temperature
+        free = [s for s in range(self.B) if not self.live[s]]
+        mid_flight = bool((self.live & self.ran).any())
         while free and self.waiting:
             req = self.waiting[0]
             if req.cancelled:
@@ -300,7 +355,8 @@ class BatchScheduler:
                 continue
             ids = self.e.tok.encode(req.prompt, bos=True)
             ids = ids[: self.e.max_len - req.max_new - 1]
-            if wave_len is not None and len(ids) != wave_len:
+            if (not self.continuous and wave_len is not None
+                    and len(ids) != wave_len):
                 break       # different prompt length -> opens the next wave
             if wave_temp is not _UNSET and req.temperature != wave_temp:
                 break       # decode runs ONE temperature per chunk, so a
@@ -321,13 +377,15 @@ class BatchScheduler:
             first = int(torch.argmax(logits[0, -1]))
             if ts is not None:
                 trace.end(ts, "admission.prefill", rid=req.rid,
-                          prompt_len=len(ids))
+                          prompt_len=len(ids), mid_flight=mid_flight)
             req.out_ids.append(first)
             req.slot = slot
             self.token[slot, 0] = first
             self.live[slot] = True
             self.reqs[slot] = req
-            self.cache_len = wave_len - 1
+            self.pos[slot] = self.cache_len = wave_len - 1
+        if self.continuous and self.live.any():
+            self.cache_len = round(float(self.pos[self.live].mean()))
 
     def _retire(self):
         for slot in range(self.B):
@@ -351,10 +409,22 @@ class BatchScheduler:
         temps = [r.temperature for r in self.reqs if r is not None]
         temp = temps[0] if temps and temps[0] is not None else None
         live = torch.from_numpy(self.live.copy()).to(self.e.device)
-        self.token, self.cache, self.cache_len, toks = self.e._decode_chunk(
-            self.token, self.cache, self.cache_len + 1, self.generator, temp,
-            live)
-        self.cache_len -= 1
+        if self.continuous:
+            # each live slot at its own position; a dead one writes (and
+            # puts back) its row at 0
+            at = torch.from_numpy(np.where(self.live, self.pos + 1, 0))
+            self.token, self.cache, _, toks = self.e._decode_chunk(
+                self.token, self.cache, at.to(self.e.device), self.generator,
+                temp, live, mean_len=self.cache_len + 1)
+            self.pos[self.live] += self.e.chunk
+            self.cache_len = round(float(self.pos[self.live].mean()))
+        else:
+            self.token, self.cache, self.cache_len, toks = \
+                self.e._decode_chunk(self.token, self.cache,
+                                     self.cache_len + 1, self.generator, temp,
+                                     live)
+            self.cache_len -= 1
+        self.ran = self.live.copy()
         toks = toks.cpu().numpy()
         kept = None if ts is None else {}     # tokens kept per rid
         for slot in range(self.B):

@@ -38,7 +38,12 @@ name                   where                                 attributes
                        decode worker (or ``submit``) to the
                        start of its prefill
 ``admission.prefill``  ``BatchScheduler._admit``: prefill,   ``rid``,
-                       slot write and first-token read       ``prompt_len``
+                       slot write and first-token read       ``prompt_len``,
+                                                             ``mid_flight``
+                                                             (a slot that
+                                                             decoded the
+                                                             chunk before
+                                                             is live)
 ``decode.chunk``       ``BatchScheduler.step_chunk`` after   ``slots``,
                        admission, to the last retire         ``steps``,
                                                              ``tokens``

@@ -19,6 +19,7 @@ with the same two-line change (``_eos_reference``), beside the
 unpatched reference, which decodes on past it."""
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -34,9 +35,13 @@ from repro.models import model as M
 from repro.serving import engine as E
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
+from repro_torch import trace
 from repro_torch.core.tokenizer import Tokenizer as TTokenizer
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax, tree_leaves
 from repro_torch.serving import engine as TE
+from repro_torch.serving.scheduler import ServingPipeline
 
 MAX_LEN, CHUNK = 160, 8
 PROMPTS = ["what is the height of aurora bridge?",
@@ -195,6 +200,218 @@ def test_greedy_batch_scheduler_tokens_identical(engines):
     assert got_t == got_r
     assert (ts.waves, ts.admitted, ts.slot_uses) == \
         (rs.waves, rs.admitted, rs.slot_uses)
+
+
+# ---------------------------------------------------------------------------
+# Per-row decode positions and continuous admission
+# ---------------------------------------------------------------------------
+
+
+def _batch_cache(port, lens=(9, 5, 11)):
+    """A bf16 batched cache (the scheduler's) with one prefilled prompt per
+    slot, cut to ``lens`` tokens: (cache, each row's next position)."""
+    cache = TM.init_cache(port.cfg, len(lens), MAX_LEN, device="cpu")
+    for slot, (prompt, n) in enumerate(zip(PROMPTS, lens)):
+        ids = port.tok.encode(prompt, bos=True)[:n]
+        assert len(ids) == n
+        port._write_slot(cache, port._prefill(port.tokens(ids))[1], slot)
+    return cache, list(lens)
+
+
+def _step(port, cache, cache_len, live=None, token=(7, 11, 3)):
+    token = torch.tensor(token, dtype=torch.long)[:, None]
+    return TM.decode_step(port.cfg, port.params, token, cache, cache_len,
+                          TM.RunCfg(), live=live)
+
+
+def test_position_tensor_of_equal_entries_is_the_int_path(family):
+    """``decode_step`` with a (B,) tensor of one position gives the int
+    path's logits and cache bit for bit, a dead slot included."""
+    _, port = family
+    live = torch.tensor([True, False, True])
+    for clen in (12, MAX_LEN + 3):                # inside, and past the end
+        cache, _ = _batch_cache(port)
+        twin = {n: t.clone() for n, t in cache.items()}
+        lg, new = _step(port, cache, clen, live)
+        tlg, tnew = _step(port, twin, torch.full((3,), clen), live)
+        assert torch.equal(tlg, lg)
+        for n in new:
+            assert torch.equal(tnew[n], new[n])
+
+
+def test_each_row_at_its_own_position_is_that_row_alone(family):
+    """Unequal positions: each live row's logits and cache row are those of
+    the row decoded alone (a one-row cache) at its own position, one past
+    its prompt; the dead row, at position 0 as the scheduler puts it,
+    keeps its cache entries bit for bit."""
+    _, port = family
+    cache, lens = _batch_cache(port)
+    before = {n: t.clone() for n, t in cache.items()}
+    live = torch.tensor([True, True, False])
+    lg, new = _step(port, cache, torch.tensor([lens[0], lens[1], 0]), live)
+    for slot in (0, 1):
+        one = {n: t[:, slot:slot + 1].clone() for n, t in before.items()}
+        tok = (7, 11, 3)[slot:slot + 1]
+        want, wnew = _step(port, one, lens[slot], token=tok)
+        torch.testing.assert_close(lg[slot], want[0], rtol=1e-5, atol=1e-5)
+        assert int(lg[slot].argmax()) == int(want[0].argmax())
+        for n in new:        # bf16 rows: an ulp apart where B=1 rounds
+            torch.testing.assert_close(new[n][:, slot], wnew[n][:, 0])
+    for n in new:
+        assert torch.equal(new[n][:, 2], before[n][:, 2])
+
+
+def test_every_step_hands_b3_fresh_lengths(engines, monkeypatch):
+    """Each decode step builds its own ``lengths`` (the int path with
+    ``torch.full``, the tensor path as a copy), so a caller that keeps one
+    past the step reads that step's positions."""
+    _, port = engines
+    seen = []
+    real = TM.ops.decode_attention
+
+    def spy(q, k, v, lengths, n_splits=8):
+        seen.append(lengths)
+        return real(q, k, v, lengths, n_splits)
+
+    monkeypatch.setattr(TM.ops, "decode_attention", spy)
+    cache, lens = _batch_cache(port)
+    pos = torch.tensor(lens)
+    live = torch.ones(3, dtype=torch.bool)
+    given = [pos, pos + 1, (pos + 2).to(torch.int32), 40]
+    for at in given:
+        _step(port, cache, at, live)
+    per_step = [seen[i * 2] for i in range(4)]    # two layers a step
+    assert [t.tolist() for t in per_step] == \
+        [[n + i for n in lens] for i in range(3)] + [[40] * 3]
+    assert len({id(t) for t in per_step}) == 4
+    assert all(t is not at for t, at in zip(per_step, given))
+    assert all(t.dtype == torch.int32 for t in seen)
+
+
+MAX_NEWS = [12, 28, 9, 20, 16, 24]
+
+
+def _waves_and_continuous(ref_sched, port, max_news, cancel_after=None,
+                          ref_mod=E):
+    """The reference's wave-mode scheduler and the port's continuous one
+    over 3 slots and the six prompts: per rid (out_ids, chunks, cancelled)
+    of each, the chunks each scheduler ran, and the port's
+    ``admission.prefill`` spans."""
+    out, chunks = [], []
+    trace.clear()
+    trace.enable()
+    try:
+        for sched, mod in ((ref_sched, ref_mod),
+                           (TE.BatchScheduler(port, batch_size=3,
+                                              continuous=True), TE)):
+            for i, (p, n) in enumerate(zip(PROMPTS, max_news)):
+                sched.submit(mod.Request(rid=i, prompt=p, max_new=n))
+            ran = 0
+            for step in range(200):
+                if step == cancel_after:
+                    sched.cancel(0)          # live: retires at the boundary
+                    sched.cancel(5)          # waiting: never prefilled
+                if sched.step_chunk():
+                    ran += 1
+                elif not sched.waiting:
+                    break
+            out.append({r.rid: (r.out_ids, r.chunks, r.cancelled)
+                        for r in sched.finished})
+            chunks.append(ran)
+        prefills = [s for s in trace.spans() if s.name == "admission.prefill"]
+    finally:
+        trace.disable()
+        trace.clear()
+    return out, chunks, prefills
+
+
+def test_continuous_scheduler_tokens_identical_to_waves(engines):
+    """Continuous admission (bf16 cache, 3 slots, prompts of 12-39 tokens,
+    ``max_new`` 9-28): every rid's greedy tokens are the reference wave
+    scheduler's, in strictly fewer chunks, and a request joined a batch
+    that was mid-decode."""
+    ref, port = engines
+    (want, got), (n_ref, n_port), prefills = _waves_and_continuous(
+        E.BatchScheduler(ref, batch_size=3), port, MAX_NEWS)
+    assert {r: v[0] for r, v in got.items()} == \
+        {r: v[0] for r, v in want.items()}
+    assert len(got) == len(PROMPTS)
+    assert n_port < n_ref
+    assert len(prefills) == len(PROMPTS)
+    assert any(s.attrs["mid_flight"] for s in prefills)
+    assert not prefills[0].attrs["mid_flight"]
+
+
+def test_continuous_scheduler_retires_a_cancelled_slot(engines):
+    """A live request cancelled after the first chunk retires at the next
+    boundary with the reference's tokens so far, and its slot takes the
+    next request; a waiting one cancelled is never prefilled; the rest
+    decode the reference's tokens."""
+    ref, port = engines
+    (want, got), _, prefills = _waves_and_continuous(
+        E.BatchScheduler(ref, batch_size=3), port, MAX_NEWS, cancel_after=1)
+    assert got == want
+    assert got[0][2] and len(got[0][0]) == 1 + CHUNK
+    assert got[5] == ([], 0, True)
+    assert 5 not in {s.rid for s in prefills}
+
+
+def test_continuous_scheduler_retires_a_mid_chunk_eos():
+    """With the EOS bias: each request that meets an EOS inside a chunk
+    retires in that chunk, its tokens and chunk count the patched
+    reference's (waves)."""
+    _, patched, port = _eos_engines()
+    (want, got), _, _ = _waves_and_continuous(
+        EosBatchScheduler(patched, batch_size=3), port, [20] * 6)
+    assert got == want
+    assert any(ids[-1] == EOS and len(ids) < 20 for ids, _, _ in got.values())
+
+
+def test_continuous_scheduler_temperature_gates_admission(engines):
+    """Decode runs one temperature per chunk: a sampled request behind a
+    greedy one waits at the head of ``waiting`` while the greedy slot
+    decodes, though slots are free, and takes a slot once it drains."""
+    _, port = engines
+    sched = TE.BatchScheduler(port, batch_size=4, continuous=True)
+    sched.submit(TE.Request(rid=0, prompt="same length prompt a", max_new=20))
+    sched.submit(TE.Request(rid=1, prompt="same length prompt b", max_new=4,
+                            temperature=1.0))
+    sched.submit(TE.Request(rid=2, prompt="a greedy one behind it",
+                            max_new=4))
+    sched._admit()
+    assert int(sched.live.sum()) == 1       # greedy first, sampled waits
+    sched.step_chunk()
+    assert int(sched.live.sum()) == 1 and len(sched.waiting) == 2
+    done = sched.run_to_completion()
+    assert sorted(r.rid for r in done) == [0, 1, 2]
+    assert [len(r.out_ids) for r in sorted(done, key=lambda r: r.rid)] == \
+        [20, 4, 4]
+
+
+def _picked(engine):
+    """Whether the pipeline's decode worker builds a continuous
+    scheduler for ``engine`` (its loop run to the shutdown sentinel)."""
+    pipe = ServingPipeline(types.SimpleNamespace(engine=engine),
+                           decode_slots=2)
+    pipe._decode_q.put(None)
+    pipe._decode_loop({})
+    return pipe.scheduler.continuous
+
+
+def test_pipeline_admits_continuously_on_a_dense_model(engines):
+    """``ServingPipeline`` picks continuous admission for a dense GQA
+    model on one device and waves for the seq-sharded decode."""
+    _, port = engines
+    assert TE.decode_rows_independent(port.cfg)
+    assert _picked(port)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
+    seq = TE.Engine(port.cfg, port.params, port.tok,
+                    TM.RunCfg(decode_attn="seq_sharded", mesh=mesh),
+                    max_len=32, chunk=4)
+    assert not TE.decode_rows_independent(seq.cfg, seq.run)
+    assert not _picked(seq)
+    with pytest.raises(ValueError, match="per-row"):
+        TE.BatchScheduler(seq, batch_size=2, continuous=True)
 
 
 def _scripted(mod, engine):

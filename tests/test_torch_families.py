@@ -29,6 +29,7 @@ mamba2's streams meet one.
 """
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +56,7 @@ from repro_torch.models import moe as TMoe
 from repro_torch.models import ssm as TSsm
 from repro_torch.models.convert import params_from_jax, tree_leaves
 from repro_torch.serving import engine as TE
+from repro_torch.serving.scheduler import ServingPipeline
 
 ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b", "mamba2-130m", "zamba2-1.2b"]
 MAX_LEN, CHUNK = 64, 4
@@ -512,6 +514,32 @@ def test_reference_scheduler_refuses_ssm_and_hybrid():
         tsched = TE.BatchScheduler(port, batch_size=2)
         tsched.submit(TE.Request(rid=0, prompt=PROMPTS[0], max_new=6))
         assert len(tsched.run_to_completion()[0].out_ids) == 6
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pipeline_admits_in_waves(arch):
+    """The pipeline's scheduler admits in waves on the MoE (deepseek, with
+    MLA; grok, with GQA), ssm and hybrid models: an MoE token's expert
+    capacity depends on the other rows of its step, and MLA, ssm and
+    hybrid take one position for the batch, so ``decode_step`` and a
+    continuous scheduler refuse per-row positions there."""
+    _, port = _engines(arch)
+    assert not TE.decode_rows_independent(port.cfg)
+    pipe = ServingPipeline(types.SimpleNamespace(engine=port),
+                           decode_slots=2)
+    pipe._decode_q.put(None)             # the loop builds it, then stops
+    pipe._decode_loop({})
+    assert pipe.scheduler.continuous is False
+    per_row = TM.per_row_positions(port.cfg)
+    assert per_row == (arch == "grok-1-314b")
+    if not per_row:
+        cache = TM.init_cache(port.cfg, 2, MAX_LEN, device="cpu")
+        with pytest.raises(ValueError, match="per-row"):
+            TM.decode_step(port.cfg, port.params,
+                           torch.ones(2, 1, dtype=torch.long), cache,
+                           torch.tensor([3, 5]))
+        with pytest.raises(ValueError, match="per-row"):
+            TE.BatchScheduler(port, batch_size=2, continuous=True)
 
 
 def test_decode_step_keeps_dead_slot_rows(family):

@@ -608,6 +608,69 @@ TOL_LOGITS_BF16 = 0.1
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "starcoder2-7b"])
+def test_gpu_per_row_decode_positions(cuda, arch):
+    """The continuous scheduler's decode on the card (bf16 cache, B3): a
+    (B,) tensor of one position gives the int path's logits and cache bit
+    for bit; unequal positions, a dead row at 0, give each live row's
+    logits within TOL_LOGITS_BF16 of the CPU's and leave the dead row's
+    cache as it was, with one B3 launch a layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    tok = Tokenizer.from_texts(["what is the height of aurora bridge",
+                                "who founded the meridian institute"])
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              vocab_size=tok.vocab_size, n_layers=2)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    prompts = ["what is the height of aurora bridge?", "who founded it?",
+               "who founded the meridian institute of aurora?"]
+
+    def batch(p, dev):
+        e = Engine(cfg, p, tok, max_len=64)
+        cache = M.init_cache(cfg, len(prompts), 64, device=dev)
+        lens = []
+        for slot, text in enumerate(prompts):
+            ids = tok.encode(text, bos=True)
+            e._write_slot(cache, e._prefill(e.tokens(ids))[1], slot)
+            lens.append(len(ids))
+        return cache, lens
+
+    token = torch.tensor([[5], [6], [7]])
+    live = torch.tensor([True, True, False])
+    on = _to(params, cuda)
+    with torch.no_grad():
+        a, lens = batch(on, cuda)
+        b = {n: t.clone() for n, t in a.items()}
+        lg, a = M.decode_step(cfg, on, token.to(cuda), a, 20,
+                              live=live.to(cuda))
+        tlg, b = M.decode_step(cfg, on, token.to(cuda), b,
+                               torch.full((3,), 20, device=cuda),
+                               live=live.to(cuda))
+        assert torch.equal(lg, tlg)
+        assert all(torch.equal(a[n], b[n]) for n in a)
+        pos = torch.tensor(lens[:2] + [0])
+        outs = []                           # the card's, then the CPU's
+        for p, dev in ((on, cuda), (params, torch.device("cpu"))):
+            cache, _ = batch(p, dev)
+            before = {n: t.clone() for n, t in cache.items()}
+            n0 = ops.decode_attention.launches
+            lg, cache = M.decode_step(cfg, p, token.to(dev), cache,
+                                      pos.to(dev), live=live.to(dev))
+            if dev.type == "cuda":
+                assert ops.decode_attention.launches - n0 == cfg.n_layers
+            assert all(torch.equal(cache[n][:, 2], before[n][:, 2])
+                       for n in cache)
+            outs.append(lg[:2, -1].cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=TOL_LOGITS_BF16)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_gpu_dense_family_bf16_batch_logits_match_cpu(cuda, arch):
     """The batch scheduler's bf16-cache path of each other dense arch's
