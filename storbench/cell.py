@@ -3,6 +3,16 @@ traffic files, warm up the cell's shapes, drive the closed loop for the
 window, then check what the timed path produced against the reference
 and read the metrics.
 
+The model-specific arithmetic is the one the configuration file names.
+A file may carry ``"reference": "<stem>"``: ``reference/<stem>.py`` then
+gives the forward pass the checks hold the served tokens to
+(``served_logits``, with ``reference/lm.py``'s contract), the FLOPs of a
+decoded token (``token_flops``, which ``flops.token_flops`` hands on to)
+and, optionally, ``PORT_FIELDS``: file keys set on the port's config
+beside this module's own. A file without the key runs ``reference/lm.py``
+(GQA, or MLA with softmax-routed experts) and ``flops``'s own count. A
+stem with no file stops the run before set-up.
+
 Everything the run measures comes from the benchmark's own spans around
 the calls into the program (``Spans``), the program's cumulative
 counters read at the window's edges, and a ``torch.profiler`` trace of
@@ -37,12 +47,12 @@ import flops  # noqa: E402
 import spans as SP  # noqa: E402
 import weights as W  # noqa: E402
 import world  # noqa: E402
-from reference import lm as ref_lm  # noqa: E402
 from reference import minilm as ref_minilm  # noqa: E402
 from reference.tokenizer import Tokenizer as RefTokenizer  # noqa: E402
 
 # file key -> the port's ModelConfig field (the configuration file is what
-# runs: its numbers are set on the port's registered config)
+# runs: its numbers are set on the port's registered config); a named
+# reference's own PORT_FIELDS add to these for its files
 PORT_FIELDS = {
     "hidden_size": "d_model", "num_hidden_layers": "n_layers",
     "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
@@ -82,9 +92,32 @@ def load_module(path: Path):
     return mod
 
 
+# where a configuration's ``reference`` stem is looked for, and the stem
+# of a file without the key
+REFERENCE = HERE / "reference"
+DEFAULT_REFERENCE = "lm"
+_references: Dict[Path, object] = {}
+
+
+def reference(c: dict):
+    """The reference module the configuration ``c`` names (loaded once a
+    path): ``reference/<stem>.py`` for ``"reference": "<stem>"``, else
+    ``reference/lm.py``. A missing file raises, naming its path."""
+    stem = c.get("reference", DEFAULT_REFERENCE)
+    path = REFERENCE / f"{stem}.py"
+    if path not in _references:
+        if not path.is_file():
+            raise FileNotFoundError(
+                f"configuration {c.get('name')!r} names the reference "
+                f"{stem!r}, but {path} does not exist")
+        _references[path] = load_module(path)
+    return _references[path]
+
+
 def port_config(c: dict):
     from repro_torch.configs import get_config
-    kw = {PORT_FIELDS[k]: v for k, v in c.items() if k in PORT_FIELDS}
+    fields = {**PORT_FIELDS, **getattr(reference(c), "PORT_FIELDS", {})}
+    kw = {fields[k]: v for k, v in c.items() if k in fields}
     if "moe_intermediate_size" in c:
         kw.update(d_ff=c["moe_intermediate_size"],
                   d_ff_expert=c["moe_intermediate_size"],
@@ -138,6 +171,7 @@ def run(o: Opts):
     cell = next(w for w in bench["workloads"] if w["name"] == o.workload)
     centry = next(c for c in bench["configs"] if c["name"] == cell["config"])
     cfg = o.config or json.loads((o.root / centry["file"]).read_text())
+    reference(cfg)      # a missing reference stops the run here
     mix = o.traffic or json.loads(
         (HERE / "traffic" / f"{cell['traffic']}.json").read_text())
     limits = o.limits or json.loads(
@@ -449,6 +483,7 @@ def _check(cfg, sysc, win, rec, questions, answers, store_embs, mini_w,
     served = [(req, rec.finished[req.text]) for req, _, _, res in ans
               if req.row is None and req.text in rec.finished]
     if served:
+        ref = reference(cfg)
         served.sort(key=lambda x: -len(x[1]))
         chosen = [served[0]]
         rest = served[1:]
@@ -463,7 +498,7 @@ def _check(cfg, sysc, win, rec, questions, answers, store_embs, mini_w,
             ids = ref_tok.encode(req.text, bos=True)[
                 : sysc["max_len"] - req.max_new - 1]
             margins = []
-            lg = ref_lm.served_logits(
+            lg = ref.served_logits(
                 cfg, lm_w, ids, out,
                 cache_dtype=getattr(torch, cfg["kv_cache_dtype"]),
                 drops=drops, margins=margins)
@@ -475,7 +510,7 @@ def _check(cfg, sysc, win, rec, questions, answers, store_embs, mini_w,
                 near += int((torch.stack(margins).min(0).values[len(ids) - 1:]
                              < 1e-6).sum())
             if control:
-                top = ref_lm.served_logits(
+                top = ref.served_logits(
                     cfg, lm_w, ids, out,
                     cache_dtype=getattr(torch, cfg["kv_cache_dtype"]),
                     dtype=torch.bfloat16).argmax(1)

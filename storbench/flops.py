@@ -7,6 +7,10 @@ with the router, the output head; not the embedding lookup) plus the
 attention over the positions it attends: 2 (d_qk + d_v) per position and
 query head, in the expanded form of the architecture (for MLA, per-head
 keys of nope + rope width and values of ``v_head_dim``).
+
+That arithmetic covers the two layouts ``reference/lm.py`` runs. A
+configuration file that names a reference of its own (``"reference":
+"<stem>"``, see ``cell``) is counted by that module's ``token_flops``.
 """
 from __future__ import annotations
 
@@ -50,6 +54,9 @@ def active_weights(c: dict) -> int:
 
 def token_flops(c: dict, attended: int) -> float:
     """FLOPs of one token that attends ``attended`` positions."""
+    if c.get("reference", "lm") != "lm":
+        import cell   # the loader; cell imports this module at its top
+        return cell.reference(c).token_flops(c, attended)
     dqk, dv = qk_v_width(c)
     return 2.0 * active_weights(c) + 2.0 * c["num_hidden_layers"] \
         * attended * c["num_attention_heads"] * (dqk + dv)

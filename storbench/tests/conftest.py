@@ -2,35 +2,31 @@
 pytest -q storbench/tests`` from the checkout's root): the traffic, the
 readers, the roofline arithmetic, the import rule, and every cell run end
 to end at a tiny size on the CPU, sound and with faults planted."""
-import copy
 import json
 import sys
+import time
 from pathlib import Path
 
 import pytest
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+TINY = Path(__file__).resolve().parent / "tiny"
+# the benchmark's configurations and cells, for module-level lists of tests
+BENCHMARK = json.loads((ROOT / "BENCHMARK.json").read_text())
+CELLS = [w["name"] for w in BENCHMARK["workloads"]]
 for p in (ROOT / "src", BENCH, BENCH / "traffic", BENCH / "reference"):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
 
 def tiny_config(name: str) -> dict:
-    """The cell's configuration file with every size cut to a CPU's: the
+    """The configuration file ``name`` with its sizes cut to a CPU's by
+    ``tests/tiny/<name>.json`` (the keys it sets replace the file's): the
     same keys, so the same code paths in the program and the reference."""
-    c = copy.deepcopy(json.loads((BENCH / "configs" / f"{name}.json")
-                                 .read_text()))
-    if "kv_lora_rank" in c:
-        c.update(hidden_size=64, num_hidden_layers=3, num_attention_heads=4,
-                 num_key_value_heads=4, vocab_size=1024,
-                 intermediate_size=128, moe_intermediate_size=32,
-                 n_routed_experts=8, num_experts_per_tok=2, kv_lora_rank=32,
-                 qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
-    else:
-        c.update(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
-                 num_key_value_heads=2, head_dim=16, vocab_size=1024,
-                 intermediate_size=128)
+    entry = next(x for x in BENCHMARK["configs"] if x["name"] == name)
+    c = json.loads((ROOT / entry["file"]).read_text())
+    c.update(json.loads((TINY / f"{name}.json").read_text()))
     c["system"] = dict(c["system"], store_rows=2000,
                        minilm=dict(dim=64, layers=2, heads=2, d_ff=128,
                                    embed_std=1.0))
@@ -44,6 +40,21 @@ def tiny_mix(name: str) -> dict:
     return m
 
 
+def run_cell(bench, workload, trace=False, fault=None, seed=2 ** 31 + 77,
+             control=False, config=None):
+    """One run of ``workload`` on the CPU at its tiny size (``config`` in
+    place of its tiny configuration)."""
+    import cell
+    w = next(x for x in bench["workloads"] if x["name"] == workload)
+    limits = json.loads((BENCH / "limits" / f"{workload}.json").read_text())
+    return cell.run(cell.Opts(
+        root=ROOT, workload=workload, seed=seed, seconds=3.0, trace=trace,
+        t_start=time.perf_counter(), device="cpu",
+        config=config or tiny_config(w["config"]),
+        traffic=tiny_mix(w["traffic"]), limits=limits, fault=fault,
+        control=control))
+
+
 @pytest.fixture(scope="session")
 def bench():
-    return json.loads((ROOT / "BENCHMARK.json").read_text())
+    return BENCHMARK
