@@ -10,12 +10,15 @@ serving model and its on-device fallback, ``llama3.2-3b``,
 ``starcoder2-7b``, ``qwen2.5-32b``, ``qwen3-1.7b``), the moe family's
 ``deepseek-v2-lite-16b`` (MLA) and ``grok-1-314b`` (GQA), the ssm
 family's ``mamba2-130m``, the hybrid ``zamba2-1.2b``, the encdec
-``whisper-base`` and the vlm ``qwen2-vl-72b`` (M-RoPE).
+``whisper-base`` and the vlm ``qwen2-vl-72b`` (M-RoPE), and one the JAX
+package does not have: ``nemotron-3-nano-30b-a3b``, a ``LayerPatternConfig``
+(a stack of single-mixer blocks, Mamba-2, MoE and GQA, in a published
+order).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Input shapes assigned to the LM pool (seq_len x global_batch).
@@ -94,6 +97,15 @@ class ModelConfig:
     # --- remat / scan ----------------------------------------------------------
     remat: bool = True
     scan_layers: bool = True
+    # --- what only a LayerPatternConfig sets (fields there; these are the
+    # defaults every other config reads, outside its field set) -------------
+    layer_pattern: ClassVar[str] = ""
+    ssm_heads: ClassVar[int] = 0
+    d_ff_shared: ClassVar[int] = 0
+    router: ClassVar[str] = "softmax"
+    routed_scale: ClassVar[float] = 1.0
+    router_experts: ClassVar[int] = 0
+    first_expert: ClassVar[int] = 0
 
     # ------------------------------------------------------------------
     @property
@@ -115,7 +127,19 @@ class ModelConfig:
 
     @property
     def d_inner_ssm(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
+
+    @property
+    def n_router(self) -> int:
+        """The router's width: every expert of the layer, held here or
+        not."""
+        return self.router_experts or self.n_experts
+
+    @property
+    def shared_width(self) -> int:
+        return self.d_ff_shared or self.n_shared_experts * self.d_ff_expert
 
     @property
     def n_ssm_heads(self) -> int:
@@ -157,7 +181,15 @@ class ModelConfig:
             p += 3 * self.n_ssm_heads  # A, dt_bias, D
             return p
 
-        if self.family == "dense" or self.family == "vlm":
+        if self.layer_pattern:
+            w = 3 if self.gated_mlp else 2
+            per = {"M": ssm_params(), "*": attn_params(),
+                   "E": (d * self.n_router
+                         + self.n_router * (self.router == "sigmoid")
+                         + self.n_experts * w * d * self.d_ff_expert
+                         + w * d * self.shared_width)}
+            total += sum(per[k] for k in self.layer_pattern)
+        elif self.family == "dense" or self.family == "vlm":
             total += self.n_layers * (attn_params() + mlp_params(self.d_ff))
         elif self.family == "moe":
             n_moe = self.n_layers - self.first_dense_layers
@@ -187,6 +219,31 @@ class ModelConfig:
         n_moe = self.n_layers - self.first_dense_layers
         inactive = n_moe * (self.n_experts - self.experts_per_tok) * 3 * d * self.d_ff_expert
         return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPatternConfig(ModelConfig):
+    """A stack of single-mixer blocks in the order ``layer_pattern`` gives
+    (``M`` Mamba-2, ``E`` MoE, ``*`` GQA attention; Nemotron-H's
+    ``hybrid_override_pattern``), with the knobs no config of the JAX
+    package has. They are fields here only, so the configs that package
+    registers keep its field set. ``ssm_heads`` sets the Mamba inner width
+    to heads x ``ssm_head_dim`` (0: ``ssm_expand`` x d). ``d_ff_shared``
+    is the shared expert's width (0: ``n_shared_experts`` x
+    ``d_ff_expert``). ``router`` is ``"softmax"`` or ``"sigmoid"``
+    (sigmoid scores, the top-k chosen by score plus the router's
+    correction bias, the chosen scores renormalised), and
+    ``routed_scale`` multiplies the routed weights. ``router_experts`` is
+    the router's width when the layer holds only ``n_experts`` of them,
+    experts ``first_expert`` onwards (expert parallelism's share; 0: all
+    of them)."""
+    layer_pattern: str = ""
+    ssm_heads: int = 0
+    d_ff_shared: int = 0
+    router: str = "softmax"
+    routed_scale: float = 1.0
+    router_experts: int = 0
+    first_expert: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +276,8 @@ def _load_all() -> None:
     # importing the modules populates the registry via register()
     from repro_torch.configs import (  # noqa: F401
         deepseek_v2_lite_16b, grok_1_314b, llama3_2_3b, mamba2_130m,
-        qwen2_5_32b, qwen2_vl_72b, qwen3_1_7b, starcoder2_7b, storinfer_paper,
-        whisper_base, zamba2_1_2b)
+        nemotron_3_nano_30b_a3b, qwen2_5_32b, qwen2_vl_72b, qwen3_1_7b,
+        starcoder2_7b, storinfer_paper, whisper_base, zamba2_1_2b)
 
 
 # ---------------------------------------------------------------------------
@@ -258,4 +315,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(n_encoder_layers=2, encoder_seq=32)
     if cfg.rope_kind == "mrope":
         kw.update(mrope_sections=(4, 2, 2))
+    if cfg.layer_pattern:
+        # every block kind twice or more, two SSM groups, a held half of
+        # the router's experts and no capacity drop
+        kw.update(layer_pattern="MEM*EM*E", n_layers=8, ssm_heads=4,
+                  ssm_n_groups=2, hybrid_attn_every=0, n_experts=4,
+                  router_experts=8, experts_per_tok=2, d_ff_expert=32,
+                  d_ff_shared=64, moe_capacity_factor=64.0)
     return dataclasses.replace(cfg, **kw)

@@ -71,9 +71,16 @@ def rmsnorm(p, x, eps=1e-6):
     return x * inv * p["scale"].to(x.dtype)
 
 
-def gated_rmsnorm(p, x, z, eps=1e-6):
-    """Mamba2-style gated norm: rmsnorm(x * silu(z))."""
-    return rmsnorm(p, x * F.silu(z), eps)
+def gated_rmsnorm(p, x, z, eps=1e-6, groups=1):
+    """Mamba2-style gated norm: rmsnorm(x * silu(z)), each of ``groups``
+    equal parts of the last dim normed on its own (Mamba-2's norm over
+    its SSM groups); one group is the whole width."""
+    if groups == 1:
+        return rmsnorm(p, x * F.silu(z), eps)
+    g = (x * F.silu(z)).unflatten(-1, (groups, -1))
+    var = g.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return (g * inv).flatten(-2) * p["scale"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -90,10 +97,18 @@ def mlp_init(gen, cfg, dtype, device, d_ff=None):
     return p
 
 
-def mlp(cfg, p, x):
-    h = dense(p["w1"], x)
+def activation(cfg, h):
+    """The MLP's activation: SiLU, relu² (``"relu2"``), else GELU."""
+    if cfg.mlp_act == "silu":
+        return F.silu(h)
+    if cfg.mlp_act == "relu2":
+        return torch.square(F.relu(h))
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.silu(h) if cfg.mlp_act == "silu" else F.gelu(h, approximate="tanh")
+    return F.gelu(h, approximate="tanh")
+
+
+def mlp(cfg, p, x):
+    h = activation(cfg, dense(p["w1"], x))
     if cfg.gated_mlp:
         h = h * dense(p["w3"], x)
     return dense(p["w2"], h)

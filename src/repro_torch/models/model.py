@@ -2,8 +2,10 @@
 JAX package's ``models/model.py``: dense (llama / qwen / starcoder), vlm
 (the dense backbone with M-RoPE: qwen2-vl), moe (deepseek: MLA + MoE;
 grok: GQA + MoE), ssm (mamba2), hybrid (zamba2: Mamba2 backbone + one
-weight-shared attention block) and encdec (whisper: a non-causal encoder
-over precomputed frame embeddings, a decoder with cross-attention).
+weight-shared attention block; a layer pattern: Nemotron-H's single-mixer
+blocks, each Mamba2, MoE or GQA attention, in ``cfg.layer_pattern``'s
+order) and encdec (whisper: a non-causal encoder over precomputed frame
+embeddings, a decoder with cross-attention).
 
 Conventions
 -----------
@@ -50,6 +52,8 @@ Conventions
     MLA    : {"ckv": (L,B,M,r), "krope": (L,B,M,dr)}
     SSM    : {"h": (L,B,H,P,N) f32, "conv": (L,B,W-1,C)}
     hybrid : SSM + {"ak"/"av": (I,B,M,Hkv,Dh)}, I = shared invocations
+    pattern: SSM over the Mamba layers + GQA over the attention layers,
+             each leaf's leading dim counting its own kind's layers
     encdec : GQA + {"xk"/"xv": (L,B,Tenc,Hkv,Dh)}, static after prefill
   Unlike the reference, which returns a new cache, ``decode_step`` writes
   INTO the cache it is given (no copy of the whole cache per step) and
@@ -69,6 +73,7 @@ from typing import Any, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.distributed.decode_attn import (gqa_decode_seq_sharded,
                                                  mla_decode_seq_sharded)
 from repro_torch.distributed.moe_parallel import moe_ffn_ep
@@ -136,11 +141,19 @@ def init_block(gen, cfg, dtype, device, kind="dense"):
     config has it), ``"enc"`` (the non-causal encoder layer), ``"dec"``
     (whisper's decoder layer: self-attention, ``lnx`` and the
     cross-attention ``xattn``, MLP), ``"moe"``, ``"moe_dense0"``
-    (deepseek's leading dense layer, ``d_ff_dense`` wide) or ``"ssm"``."""
+    (deepseek's leading dense layer, ``d_ff_dense`` wide), ``"ssm"``, or a
+    layer pattern's ``"experts"`` and ``"attn"`` (a norm and that one
+    mixer)."""
     d = cfg.d_model
     if kind == "ssm":
         return {"ln": Lyr.rmsnorm_init(d, dtype, device),
                 "ssm": Ssm.ssm_init(gen, cfg, dtype, device)}
+    if kind == "experts":
+        return {"ln": Lyr.rmsnorm_init(d, dtype, device),
+                "moe": Moe.moe_init(gen, cfg, dtype, device)}
+    if kind == "attn":
+        return {"ln": Lyr.rmsnorm_init(d, dtype, device),
+                "attn": Lyr.attention_init(gen, cfg, dtype, device)}
     if kind not in ("dense", "enc", "dec", "moe", "moe_dense0"):
         raise ValueError(f"block kind {kind!r}")
     attn = Mla.mla_init(gen, cfg, dtype, device) \
@@ -157,6 +170,13 @@ def init_block(gen, cfg, dtype, device, kind="dense"):
         d_ff = (cfg.d_ff_dense or cfg.d_ff) if kind == "moe_dense0" else None
         p["mlp"] = Lyr.mlp_init(gen, cfg, dtype, device, d_ff=d_ff)
     return p
+
+
+# a layer pattern's letters: (block kind, the mixer its ``decode.mixer``
+# span names, its decode-cache leaves)
+PATTERN = {"M": ("ssm", "ssm", ("h", "conv")),
+           "E": ("experts", "moe", ()),
+           "*": ("attn", "attn", ("k", "v"))}
 
 
 def main_block_kind(cfg) -> str:
@@ -185,14 +205,15 @@ def init_model(cfg, generator: torch.Generator, dtype=None, device="cuda"):
         params["lm_head"] = Lyr.dense_init(generator, cfg.d_model, vp, dtype,
                                            device)
     n_dense0 = _n_dense0(cfg)
-    kind = main_block_kind(cfg)
+    kinds = [PATTERN[c][0] for c in cfg.layer_pattern] or \
+        [main_block_kind(cfg)] * (cfg.n_layers - n_dense0)
     params["blocks"] = [init_block(generator, cfg, dtype, device, kind)
-                        for _ in range(cfg.n_layers - n_dense0)]
+                        for kind in kinds]
     if n_dense0:
         params["dense0"] = [init_block(generator, cfg, dtype, device,
                                        "moe_dense0")
                             for _ in range(n_dense0)]
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" and not cfg.layer_pattern:
         params["shared"] = init_block(generator, cfg, dtype, device, "dense")
     if cfg.is_encoder_decoder:
         params["enc_blocks"] = [init_block(generator, cfg, dtype, device,
@@ -207,8 +228,12 @@ def _n_dense0(cfg) -> int:
 
 
 def _layers(cfg, params):
-    """(kind, params) of every layer of a uniform stack, in order:
-    deepseek's ``dense0`` layers first, then ``blocks``."""
+    """(kind, params) of every layer of a uniform stack or a layer
+    pattern, in order: deepseek's ``dense0`` layers first, then
+    ``blocks``."""
+    if cfg.layer_pattern:
+        return [(PATTERN[c][0], p)
+                for c, p in zip(cfg.layer_pattern, params["blocks"])]
     kind = main_block_kind(cfg)
     return [("moe_dense0", p) for p in params.get("dense0", [])] + \
         [(kind, p) for p in params["blocks"]]
@@ -457,15 +482,27 @@ def block_fullseq(cfg, p, x, positions, kind="dense", run=KERNEL, *,
     """One layer over a full sequence: ``"dense"``/``"moe"``/
     ``"moe_dense0"``/``"dec"`` attend causally (``"dec"`` then to
     ``enc_out`` through its cross-attention), ``"enc"`` to every position,
-    ``"ssm"`` runs the SSD scan. Returns (x, aux, this layer's cache
-    entries); ``aux`` is the MoE load-balance loss when ``with_aux``
-    (else None)."""
+    ``"ssm"`` runs the SSD scan, a layer pattern's ``"experts"`` its MoE
+    and ``"attn"`` its causal GQA, each alone. Returns (x, aux, this
+    layer's cache entries); ``aux`` is the MoE load-balance loss when
+    ``with_aux`` (else None)."""
     if kind == "ssm":
         h, (hs, conv) = Ssm.ssm_forward(
             cfg, p["ssm"], Lyr.rmsnorm(p["ln"], x, cfg.norm_eps),
             chunk=run.ssm_chunk or None)
         aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
         return x + h, aux, {"h": hs, "conv": conv}
+    if kind == "experts":
+        y, aux = apply_moe(cfg, p["moe"], Lyr.rmsnorm(p["ln"], x,
+                                                      cfg.norm_eps),
+                           run=run, with_aux=with_aux)
+        return x + y, aux, {}
+    if kind == "attn":
+        h, kv = gqa_fullseq(cfg, p["attn"], Lyr.rmsnorm(p["ln"], x,
+                                                        cfg.norm_eps),
+                            positions, run=run)
+        aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
+        return x + h, aux, kv
     if kind not in ("dense", "enc", "dec", "moe", "moe_dense0"):
         raise ValueError(f"block kind {kind!r}")
     xin = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -502,6 +539,15 @@ def block_decode(cfg, p, x, csl, cache_len, lengths, live=None,
                                   new, c)
             c.copy_(new)
         return x + h
+    if kind == "experts":
+        y, _ = apply_moe(cfg, p["moe"], Lyr.rmsnorm(p["ln"], x, cfg.norm_eps),
+                         run=run, with_aux=False)
+        return x + y
+    if kind == "attn":
+        return x + gqa_decode(cfg, p["attn"],
+                              Lyr.rmsnorm(p["ln"], x, cfg.norm_eps),
+                              csl["k"], csl["v"], cache_len, lengths, live,
+                              run=run)
     xin = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.use_mla:
         h = mla_decode(cfg, p["attn"], xin, csl["ckv"], csl["krope"],
@@ -578,8 +624,10 @@ def _encode(cfg, params, frames, run=KERNEL):
 
 
 def _stack(entries):
-    """[{name: (B, ...)}] per layer -> {name: (L, B, ...)}."""
-    return {n: torch.stack([e[n] for e in entries]) for n in entries[0]}
+    """[{name: (B, ...)}] per layer -> {name: (L, B, ...)}, L the layers
+    that have the leaf (a layer pattern's kinds each keep their own)."""
+    names = dict.fromkeys(n for e in entries for n in e)
+    return {n: torch.stack([e[n] for e in entries if n in e]) for n in names}
 
 
 def _pad_seq(t, max_len: int):
@@ -623,7 +671,7 @@ def _run_stack(cfg, params, tokens, run, *, positions, frames=None,
             aux = aux + a
         return kv
 
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" and not cfg.layer_pattern:
         k_every = cfg.hybrid_attn_every
         for i, lp in enumerate(params["blocks"]):
             if k_every and i % k_every == 0:
@@ -715,14 +763,20 @@ def cache_struct(cfg, batch, max_len, dtype=None):
         return {"ckv": ((L, B, M, cfg.kv_lora_rank), dt),
                 "krope": ((L, B, M, cfg.qk_rope_head_dim), dt)}
     kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    C = cfg.d_inner_ssm + 2 * cfg.ssm_n_groups * N
+    if cfg.layer_pattern:
+        n_ssm, n_attn = (cfg.layer_pattern.count(c) for c in "M*")
+        return {"h": ((n_ssm, B, H, P, N), torch.float32),
+                "conv": ((n_ssm, B, cfg.ssm_conv - 1, C), dt),
+                "k": ((n_attn, B, M) + kv, dt),
+                "v": ((n_attn, B, M) + kv, dt)}
     if cfg.family in ("dense", "vlm", "moe"):
         return {"k": ((L, B, M) + kv, dt), "v": ((L, B, M) + kv, dt)}
     if cfg.is_encoder_decoder:
         Te = cfg.encoder_seq
         return {"k": ((L, B, M) + kv, dt), "v": ((L, B, M) + kv, dt),
                 "xk": ((L, B, Te) + kv, dt), "xv": ((L, B, Te) + kv, dt)}
-    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    C = cfg.d_inner_ssm + 2 * cfg.ssm_n_groups * N
     out = {"h": ((L, B, H, P, N), torch.float32),
            "conv": ((L, B, cfg.ssm_conv - 1, C), dt)}
     if cfg.family == "hybrid":
@@ -796,6 +850,9 @@ def decode_step(cfg, params, token, cache, cache_len, run=RunCfg(),
     else:
         # a new tensor every step: B3's callers may keep it past the step
         lengths = cache_len.to(torch.int32, copy=True)
+    if cfg.layer_pattern:
+        return lm_logits(cfg, run, params, _decode_pattern(
+            cfg, params, x, cache, cache_len, lengths, live, run)), cache
     if cfg.family == "hybrid":
         k_every, inv = cfg.hybrid_attn_every, 0
         for i, lp in enumerate(params["blocks"]):
@@ -820,6 +877,22 @@ def decode_step(cfg, params, token, cache, cache_len, run=RunCfg(),
                          cache_len, lengths, live, kind=kind,
                          mrope_positions=mrope_positions, run=run)
     return lm_logits(cfg, run, params, x), cache
+
+
+def _decode_pattern(cfg, params, x, cache, cache_len, lengths, live, run):
+    """One token through a layer pattern's blocks, each reading its own
+    kind's cache leaves at its index among that kind's layers; a
+    ``decode.mixer`` span a layer while the recorder records."""
+    seen = {}
+    for i, (c, lp) in enumerate(zip(cfg.layer_pattern, params["blocks"])):
+        kind, mixer, leaves = PATTERN[c]
+        j = seen[c] = seen.get(c, -1) + 1
+        ts = trace.start()
+        x = block_decode(cfg, lp, x, {n: cache[n][j] for n in leaves},
+                         cache_len, lengths, live, kind=kind, run=run)
+        if ts is not None:
+            trace.end(ts, "decode.mixer", kind=mixer, layer=i)
+    return x
 
 
 def serve_step(cfg, params, token, cache, cache_len: int, rng, run=RunCfg(),

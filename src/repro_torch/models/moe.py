@@ -11,13 +11,24 @@ expert's capacity is dropped (the residual stream carries the token).
 Which assignments drop is the reference's choice exactly: the top-k keeps
 the lower expert index on ties, and ranks follow an exclusive cumulative
 sum over the flattened (token, k) order.
+
+A config may route otherwise (``router="sigmoid"``: Nemotron-H's sigmoid
+scores, chosen by score plus a correction bias) and hold a share of the
+router's experts (``router_experts`` wide, ``n_experts`` of them held from
+``first_expert`` on, as expert parallelism divides a layer): the layer
+routes over all of them and computes the assignments to its own, with the
+weights the whole top-k gives; what the other experts would add is not
+there. Non-gated configs (``gated_mlp`` False) run ``down(act(up x))``
+experts.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal, dense_init, mlp, mlp_init
+from repro_torch import trace
+from repro_torch.models.layers import (_normal, activation, dense_init, mlp,
+                                       mlp_init)
 
 
 def moe_init(gen, cfg, dtype, device):
@@ -28,42 +39,59 @@ def moe_init(gen, cfg, dtype, device):
 
     p = {
         # the router is kept in f32, as in the reference
-        "router": dense_init(gen, d, E, torch.float32, device),
-        "experts": {"w1": ew(d, ffe), "w3": ew(d, ffe), "w2": ew(ffe, d)},
+        "router": dense_init(gen, d, cfg.n_router, torch.float32, device),
+        "experts": {"w1": ew(d, ffe), "w3": ew(d, ffe), "w2": ew(ffe, d)}
+        if cfg.gated_mlp else {"w1": ew(d, ffe), "w2": ew(ffe, d)},
     }
+    if cfg.router == "sigmoid":
+        # the score-correction bias: it chooses, and weighs nothing
+        p["router"]["bias"] = torch.zeros((cfg.n_router,),
+                                          dtype=torch.float32, device=device)
     if cfg.n_shared_experts:
-        p["shared"] = mlp_init(gen, cfg, dtype, device,
-                               d_ff=cfg.n_shared_experts * ffe)
+        p["shared"] = mlp_init(gen, cfg, dtype, device, d_ff=cfg.shared_width)
     return p
 
 
 def route(cfg, p, x2d):
-    """x2d: (T, d) -> (weights (T,K) f32, idx (T,K), router probs (T,E)).
+    """x2d: (T, d) -> (weights (T,K) f32, idx (T,K), router probs (T,E)),
+    over the router's ``n_router`` experts.
 
     The router product accumulates in f32 (the reference's
     ``preferred_element_type``): the inputs are widened, which is exact.
     ``jax.lax.top_k`` puts the lower index first among equal values and
     ``torch.topk`` promises no order, so the top-k is a stable descending
-    sort."""
+    sort. A sigmoid router sorts by its scores plus the correction bias,
+    weighs by the scores alone, renormalised (Nemotron-H's
+    ``norm_topk_prob``) and times ``routed_scale``."""
     w_r = p["router"]["w"].to(x2d.dtype)
     logits = x2d.float() @ w_r.float()
+    K = cfg.experts_per_tok
+    if cfg.router == "sigmoid":
+        probs = torch.sigmoid(logits)
+        _, idx = torch.sort(probs + p["router"]["bias"].float(), dim=-1,
+                            descending=True, stable=True)
+        idx = idx[:, :K]
+        w = probs.gather(1, idx)
+        w = w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale
+        return w, idx, probs
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    w, idx = w[:, :cfg.experts_per_tok], idx[:, :cfg.experts_per_tok]
+    w, idx = w[:, :K], idx[:, :K]
     w = w / (w.sum(-1, keepdim=True) + 1e-9)
     return w, idx, probs
 
 
 def load_balance_loss(cfg, probs, idx):
-    """Switch-style aux loss: E * sum_e(f_e * p_e)."""
-    E = cfg.n_experts
+    """Switch-style aux loss: E * sum_e(f_e * p_e), over the router's
+    experts."""
+    E = probs.shape[-1]
     me = probs.mean(dim=0)                                        # (E,)
     fe = F.one_hot(idx, E).float().mean(dim=(0, 1))
     return E * torch.sum(me * fe)
 
 
 def capacity(cfg, n_tokens):
-    c = int(n_tokens * cfg.experts_per_tok / cfg.n_experts
+    c = int(n_tokens * cfg.experts_per_tok / cfg.n_router
             * cfg.moe_capacity_factor)
     return max(c, 8)
 
@@ -72,21 +100,39 @@ def dispatch_slots(cfg, idx, n_tokens):
     """(slot, valid, C) for each (token, k) assignment: slot = expert * C +
     rank within the expert, where rank counts the earlier assignments to
     that expert in flattened (token, k) order; an overflowing assignment
-    gets slot E * C (one row past the buffer)."""
+    gets slot E * C (one row past the buffer). Where the layer holds a
+    share of the router's experts, E counts the held ones, an assignment
+    to another expert is not valid and takes no rank, and while the span
+    recorder records, the assignments and the held ones are counted on
+    the device (``moe.routed``, ``moe.held``)."""
     E = cfg.n_experts
     C = capacity(cfg, n_tokens)
     flat_e = idx.reshape(-1)                                      # (T*K,)
+    held = None
+    if cfg.router_experts:
+        local = flat_e - cfg.first_expert
+        held = (local >= 0) & (local < E)
+        flat_e = torch.where(held, local, 0)
+        if trace.recording():
+            trace.count("moe.routed", held.numel())
+            trace.count("moe.held", held.sum())
     onehot = F.one_hot(flat_e, E)                                 # (T*K, E)
+    if held is not None:
+        onehot = onehot * held[:, None]
     rank = torch.cumsum(onehot, dim=0) - onehot                   # exclusive
     rank = rank.gather(1, flat_e[:, None])[:, 0]
-    valid = rank < C
+    valid = rank < C if held is None else held & (rank < C)
     slot = torch.where(valid, flat_e * C + rank,
                        torch.full_like(flat_e, E * C))
     return slot, valid, C
 
 
 def expert_ffn(cfg, experts, buf):
-    """buf: (E, C, d) -> (E, C, d) through gated-SiLU expert MLPs."""
+    """buf: (E, C, d) -> (E, C, d) through the expert MLPs: gated SiLU,
+    or ``down(act(up x))`` where ``gated_mlp`` is False."""
+    if not cfg.gated_mlp:
+        return torch.bmm(activation(cfg, torch.bmm(buf, experts["w1"])),
+                         experts["w2"])
     h1 = F.silu(torch.bmm(buf, experts["w1"]))
     h3 = torch.bmm(buf, experts["w3"])
     return torch.bmm(h1 * h3, experts["w2"])

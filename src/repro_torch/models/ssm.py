@@ -158,7 +158,8 @@ def ssm_forward(cfg, p, x, state=None, chunk=None):
     xdt = xs * dt[..., None].to(xs.dtype)
     y, h = ssd_chunked(xdt, dA, Bm, Cm, min(chunk, S), h0=state)
     y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    y = gated_rmsnorm(p["norm"], y.reshape(B, S, di), z, cfg.norm_eps)
+    y = gated_rmsnorm(p["norm"], y.reshape(B, S, di), z, cfg.norm_eps,
+                      cfg.ssm_n_groups)
     W = cfg.ssm_conv
     pad = F.pad(xBC_raw, (0, 0, max(W - 1 - S, 0), 0))
     return dense(p["out_proj"], y), (h, pad[:, -(W - 1):, :])
@@ -186,5 +187,6 @@ def ssm_decode(cfg, p, x, state, conv_state):
     h = state * dec[..., None, None] + upd                        # (B,H,P,N)
     y = torch.einsum("bhn,bhpn->bhp", Cm.float(), h)
     y = y.to(xs.dtype) + xs * p["D"][None, :, None].to(xs.dtype)
-    y = gated_rmsnorm(p["norm"], y.reshape(B, 1, di), z, cfg.norm_eps)
+    y = gated_rmsnorm(p["norm"], y.reshape(B, 1, di), z, cfg.norm_eps,
+                      cfg.ssm_n_groups)
     return dense(p["out_proj"], y), (h, window[:, 1:, :])

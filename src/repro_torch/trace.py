@@ -50,13 +50,29 @@ name                   where                                 attributes
                                                              ({rid: kept})
 ``decode.step``        ``Engine._decode_chunk``: one step,   ``cache_len``
                        its sampling and its ``where``
+``decode.mixer``       ``models/model.py`` ``decode_step``   ``kind``
+                       of a layer-pattern stack: one         (``ssm``,
+                       layer's block (norm, mixer,           ``moe``,
+                       residual)                             ``attn``),
+                                                             ``layer``
 =====================  ====================================  ===========
+
+Counters (``count``, read by ``counts``) are cumulative sums kept while
+recording, each a number or a one-element device tensor that grows on
+the device with no host read. A site counts only under ``recording()``,
+so a step taken while nothing records launches nothing more:
+
+==================  ===============================================
+``moe.routed``      an MoE layer holding a share of its router's
+                    experts: the (token, k) assignments routed
+``moe.held``        ... of which to an expert this layer holds
+==================  ===============================================
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from torch.autograd import profiler as _profiler
 
@@ -94,6 +110,11 @@ class Recorder:
         self._dropped = 0
         self._drop_lock = threading.Lock()
         self._offset_ns: Optional[int] = None
+        self._counts: Dict[str, object] = {}
+        self._count_lock = threading.Lock()
+
+    def recording(self) -> bool:
+        return _profiler._is_profiler_enabled or self.enabled
 
     def start(self):
         """(perf_counter, thread_time) while recording, else None."""
@@ -122,6 +143,18 @@ class Recorder:
         """A span whose ends were stamped elsewhere (no CPU time)."""
         self._keep(Span(name, t0, t1, None, threading.current_thread().name,
                         rid, None, attrs or None))
+
+    def count(self, name: str, n):
+        """Add ``n`` (a number, or a one-element tensor, which is added on
+        its device) to the counter ``name``; a site calls this only while
+        ``recording()``."""
+        with self._count_lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def counts(self) -> Dict[str, float]:
+        """Each counter's total (a device counter is read here)."""
+        with self._count_lock:
+            return {k: float(v) for k, v in self._counts.items()}
 
     def _keep(self, span: Span):
         if self._offset_ns is None:
@@ -152,11 +185,14 @@ class Recorder:
         self._spans = []
         with self._drop_lock:
             self._dropped = 0
+        with self._count_lock:
+            self._counts = {}
         self._offset_ns = None
 
 
 # the process's one recorder, which the serving path writes to
 RECORDER = Recorder()
+recording = RECORDER.recording
 start = RECORDER.start
 now = RECORDER.now
 end = RECORDER.end
@@ -166,4 +202,6 @@ disable = RECORDER.disable
 spans = RECORDER.spans
 dropped = RECORDER.dropped
 clock_offset_ns = RECORDER.clock_offset_ns
+count = RECORDER.count
+counts = RECORDER.counts
 clear = RECORDER.clear

@@ -823,6 +823,46 @@ def test_gpu_families_bf16_batch_logits_match_cpu(cuda, arch):
 
 
 @pytest.mark.gpu
+def test_gpu_layer_pattern_decode_matches_cpu(cuda):
+    """nemotron-3-nano-30b-a3b's ``reduced()`` stack (Mamba-2, MoE with
+    four of eight experts held, GQA; ``MEM*EM*E``) through the batch
+    scheduler's bf16-cache path on the card, teacher-forced with the
+    CPU's greedy tokens: prefill on B4 and every decode step's logits
+    within TOL_LOGITS_BF16 of the CPU's, one B3 launch per attention
+    layer a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models import model as M
+    tok = Tokenizer.from_texts(["what is the height of aurora bridge",
+                                "who founded the meridian institute"])
+    cfg = dataclasses.replace(reduced(get_config("nemotron-3-nano-30b-a3b")),
+                              vocab_size=tok.vocab_size)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu")
+    prompts = ["what is the height of aurora bridge?",
+               "who is the height of aurora bridge?"]
+    assert len({len(tok.encode(p, bos=True)) for p in prompts}) == 1
+    want = _teacher_forced_logits(cfg, params, tok, prompts, None, 64, 16)
+    picks = [[int(x[b]) for x in [want[0].argmax(-1)] + [
+        w.argmax(-1) for w in want[1]]] for b in range(len(prompts))]
+    ops.reset_launch_counts()
+    got = _teacher_forced_logits(cfg, _to(params, cuda), tok, prompts, picks,
+                                 64)
+    n_attn = cfg.layer_pattern.count("*")
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["decode_attention"]) == \
+        (len(prompts) * n_attn, len(want[1]) * n_attn)
+    print(f"layer pattern: bf16-cache logits, card vs CPU over "
+          f"{len(want[1])} steps: max abs difference "
+          f"{float((got[1] - want[1]).abs().max()):.4e} (prefill "
+          f"{float((got[0] - want[0]).abs().max()):.4e})")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=TOL_LOGITS_BF16)
+
+
+@pytest.mark.gpu
 def test_gpu_train_contrastive_matches_cpu(cuda):
     """Five steps of MiniLM contrastive training on the card (the plain
     attention under autograd, TF32 off) against the CPU from the same
