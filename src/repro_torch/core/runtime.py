@@ -22,12 +22,13 @@ Two runtimes share that structure:
       a bounded queue. Hits resolve the moment the MIPS search returns;
       misses flow into one persistent continuous-batching
       ``BatchScheduler`` whose freed slots are refilled at the next chunk
-      boundary on a dense GQA model, between waves on the others;
-      §3.1 ``add_misses`` write-back + ``flush_and_rebuild`` run off the
-      critical path with the index swapped atomically. ``query_batch``
-      stays as the synchronous compatibility path over the same stage
-      helpers (one embed + one MIPS dispatch + one batched decode racing
-      it, hit slots cancelled mid-flight).
+      boundary where the decode rows are independent
+      (``serving.engine.decode_rows_independent``), between waves on the
+      others; §3.1 ``add_misses`` write-back + ``flush_and_rebuild`` run
+      off the critical path with the index swapped atomically.
+      ``query_batch`` stays as the synchronous compatibility path over
+      the same stage helpers (one embed + one MIPS dispatch + one batched
+      decode racing it, hit slots cancelled mid-flight).
 """
 from __future__ import annotations
 

@@ -805,11 +805,14 @@ def place_cache(cache, run):
 
 def per_row_positions(cfg, run=RunCfg()) -> bool:
     """Whether ``decode_step`` takes a (B,) tensor of per-row positions:
-    GQA self-attention on one device. MLA's absorbed decode, the SSM and
-    hybrid families, the encoder-decoder's position table and the
-    seq-sharded decode take one position for the batch."""
+    GQA self-attention on one device, in a uniform stack or a layer
+    pattern (whose Mamba-2 and MoE blocks take no position). MLA's
+    absorbed decode, the uniform SSM and hybrid families, the
+    encoder-decoder's position table and the seq-sharded decode take one
+    position for the batch."""
     return (not cfg.use_mla and not cfg.is_encoder_decoder
-            and cfg.family not in ("ssm", "hybrid")
+            and (bool(cfg.layer_pattern)
+                 or cfg.family not in ("ssm", "hybrid"))
             and not _seq_sharded(run))
 
 
@@ -828,14 +831,14 @@ def decode_step(cfg, params, token, cache, cache_len, run=RunCfg(),
     """token (B,1) int; cache per ``cache_struct`` (updated in place);
     cache_len: the position this token is written at (it attends
     [0, cache_len]): an int for every row, or a (B,) long tensor on the
-    token's device with each row's own position, which GQA models on one
-    device take (``per_row_positions``). ``live`` (B,) bool keeps the
-    cache rows of dead slots as they were. ``mrope_positions`` (3,B,1):
-    the vlm's position of this token (default ``cache_len`` on every
-    stream). ``run`` picks the decode attention and the MoE dispatch;
-    with ``decode_attn="seq_sharded"`` a cache not yet laid out for it is
-    laid out in place (``place_cache``). Returns (logits (B,1,V),
-    cache)."""
+    token's device with each row's own position, which GQA models and
+    layer patterns on one device take (``per_row_positions``). ``live``
+    (B,) bool keeps the cache rows of dead slots as they were.
+    ``mrope_positions`` (3,B,1): the vlm's position of this token
+    (default ``cache_len`` on every stream). ``run`` picks the decode
+    attention and the MoE dispatch; with ``decode_attn="seq_sharded"`` a
+    cache not yet laid out for it is laid out in place (``place_cache``).
+    Returns (logits (B,1,V), cache)."""
     B = token.shape[0]
     if _seq_sharded(run):
         place_cache(cache, run)
@@ -846,7 +849,7 @@ def decode_step(cfg, params, token, cache, cache_len, run=RunCfg(),
     elif not per_row_positions(cfg, run):
         raise ValueError(f"{cfg.name}: per-row decode positions need GQA "
                          "attention on one device (a dense, vlm or GQA moe "
-                         "decoder, decode_attn='naive')")
+                         "decoder or a layer pattern, decode_attn='naive')")
     else:
         # a new tensor every step: B3's callers may keep it past the step
         lengths = cache_len.to(torch.int32, copy=True)

@@ -16,11 +16,13 @@ Components:
 equal prompt length, and only while no slot decodes: the batch shares one
 position, the reference's semantics, which ``BatchSession`` and the build
 keep. ``ServingPipeline`` asks for continuous admission where the decode
-rows are independent (``decode_rows_independent``: a dense GQA model on
-one device): each slot keeps its own position, and a waiting request
-takes any free slot at the next chunk boundary. MoE models stay on waves,
-since a token's expert capacity depends on the other rows of its step;
-so do MLA, ssm, hybrid and the seq-sharded decode, which take one
+rows are independent (``decode_rows_independent``: GQA attention on one
+device, in a dense model or a layer pattern, with no expert capacity that
+can drop an assignment at the slot count): each slot keeps its own
+position, and a waiting request takes any free slot at the next chunk
+boundary. An MoE whose capacity can drop stays on waves, since a token's
+experts then depend on the other rows of its step; so do MLA, the
+uniform ssm and hybrid stacks and the seq-sharded decode, which take one
 position for the batch.
 
 PyTorch runs eagerly, so there is nothing to compile; the caches are
@@ -43,6 +45,7 @@ from repro_torch import trace
 from repro_torch.core.tokenizer import EOS
 from repro_torch.distributed.sharding import Sharded, shard
 from repro_torch.models import model as M
+from repro_torch.models import moe as Moe
 
 
 def sample_token(logits, generator: torch.Generator, temperature):
@@ -242,20 +245,25 @@ class Request:
     #                           queue (0: not stamped); ends ``decode.queue``
 
 
-def decode_rows_independent(cfg, run=None) -> bool:
+def decode_rows_independent(cfg, run=None, batch: int = None) -> bool:
     """Whether a decode step's rows are independent of each other, so a
-    request may join a batch that is mid-decode: a dense GQA model on one
-    device. An MoE layer caps each expert's tokens per call and ranks the
-    assignments in slot order, so a token's experts depend on the other
-    rows of its step: with every slot live, a later slot would drop an
-    assignment whenever the capacity's worth of earlier slots chose the
-    same expert, and continuous admission would change its tokens, not
-    only its speed. MoE models stay on waves until the configuration and
-    its reference state a decode-time capacity. MLA, ssm, hybrid and the
-    seq-sharded decode take one position for the batch."""
+    request may join a batch that is mid-decode: the model takes per-row
+    positions (``M.per_row_positions``) and, where it has experts, no
+    assignment can drop at ``batch`` rows. An MoE layer caps each expert
+    at ``moe.capacity`` assignments a call, ranked in slot order. A token
+    ranks at most once per expert, so a capacity of at least ``batch``
+    drops none, at that call and every smaller one. A smaller capacity
+    makes a token's experts depend on the other rows of its step, and
+    continuous admission would change its tokens, not only its speed:
+    such a model stays on waves until its configuration and reference
+    state a decode-time capacity. Without ``batch``, a model with experts
+    answers false."""
     run = run or M.RunCfg()
-    return (cfg.family == "dense" and not cfg.use_mla
-            and not cfg.n_experts and run.decode_attn != "seq_sharded")
+    if not M.per_row_positions(cfg, run):
+        return False
+    if not cfg.n_experts:
+        return True
+    return batch is not None and Moe.capacity(cfg, batch) >= batch
 
 
 class BatchScheduler:
@@ -271,7 +279,8 @@ class BatchScheduler:
     simply forms multiple waves.
 
     Continuous admission (``continuous=True``, which ``ServingPipeline``
-    asks for where ``decode_rows_independent``): every slot keeps its own
+    asks for where ``decode_rows_independent`` holds at ``batch_size``
+    rows, and which is refused elsewhere): every slot keeps its own
     position in ``pos``, so at every chunk boundary the head of
     ``waiting`` is prefilled into each free slot, whatever the prompts'
     lengths and whether other slots are mid-decode. ``cache_len`` is then
@@ -287,10 +296,12 @@ class BatchScheduler:
 
     def __init__(self, engine: Engine, batch_size: int = 4,
                  continuous: bool = False):
-        if continuous and not M.per_row_positions(engine.cfg,
-                                                  engine.run or M.RunCfg()):
+        if continuous and not decode_rows_independent(engine.cfg, engine.run,
+                                                      batch_size):
             raise ValueError(f"{engine.cfg.name}: continuous admission needs "
-                             "per-row decode positions (GQA on one device)")
+                             "independent decode rows: per-row decode "
+                             "positions (GQA on one device) and no expert "
+                             f"capacity that drops at {batch_size} slots")
         self.e = engine
         self.B = batch_size
         self.continuous = continuous

@@ -31,8 +31,9 @@ miss finished) is broken into workers connected by bounded queues:
              store.get_pair, future            persistent BatchScheduler:
              resolved the moment the           freed slots refilled from
              search returned — NEVER           newly-searched misses
-             waits on any decode               at the next chunk (dense)
-                                               or between waves
+             waits on any decode               at the next chunk (rows
+                                               independent) or between
+                                               waves
                                                     │ §3.1 write-backs
                                                     ▼
                                              [writeback q] ─▶ writeback
@@ -281,9 +282,11 @@ class ServingPipeline:
       returns — it never waits on any decode;
     * misses flow into ONE persistent continuous-batching
       ``BatchScheduler``: freed decode slots (finished or cancelled) are
-      refilled from newly-searched misses at the next chunk boundary on
-      a dense GQA model (continuous admission), between waves on the
-      others, never a full batch teardown per admission;
+      refilled from newly-searched misses at the next chunk boundary
+      where the decode rows are independent (continuous admission:
+      GQA, dense or in a layer pattern, with no expert capacity drop at
+      the slot count), between waves on the others, never a full batch
+      teardown per admission;
     * §3.1 write-back and ``flush_and_rebuild`` run on a background
       worker (``async_writeback``), the rebuilt index swapped atomically
       under the runtime's index lock — in-flight searches keep the old
@@ -565,11 +568,13 @@ class ServingPipeline:
                                                 decode_rows_independent)
         eng = self.rt.engine
         # a miss joins the batch mid-decode where the decode rows are
-        # independent (dense GQA); MoE, MLA, ssm, hybrid and seq-sharded
-        # decode admit in waves (engine.decode_rows_independent)
+        # independent at this slot count (GQA, dense or in a layer
+        # pattern, no expert capacity drop); a dropping MoE, MLA, the
+        # uniform ssm and hybrid stacks and the seq-sharded decode admit
+        # in waves (engine.decode_rows_independent)
         sched = BatchScheduler(eng, batch_size=self.decode_slots,
-                               continuous=decode_rows_independent(eng.cfg,
-                                                                  eng.run))
+                               continuous=decode_rows_independent(
+                                   eng.cfg, eng.run, self.decode_slots))
         self.scheduler = sched
         sentinel = False
 

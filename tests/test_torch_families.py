@@ -516,20 +516,39 @@ def test_reference_scheduler_refuses_ssm_and_hybrid():
         assert len(tsched.run_to_completion()[0].out_ids) == 6
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_pipeline_admits_in_waves(arch):
-    """The pipeline's scheduler admits in waves on the MoE (deepseek, with
-    MLA; grok, with GQA), ssm and hybrid models: an MoE token's expert
-    capacity depends on the other rows of its step, and MLA, ssm and
-    hybrid take one position for the batch, so ``decode_step`` and a
-    continuous scheduler refuse per-row positions there."""
-    _, port = _engines(arch)
-    assert not TE.decode_rows_independent(port.cfg)
-    pipe = ServingPipeline(types.SimpleNamespace(engine=port),
-                           decode_slots=2)
+def _picked(engine, slots):
+    """Whether the pipeline's decode worker builds a continuous scheduler
+    for ``engine`` at ``slots`` (its loop run to the shutdown sentinel)."""
+    pipe = ServingPipeline(types.SimpleNamespace(engine=engine),
+                           decode_slots=slots)
     pipe._decode_q.put(None)             # the loop builds it, then stops
     pipe._decode_loop({})
-    assert pipe.scheduler.continuous is False
+    return pipe.scheduler.continuous
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pipeline_admits_in_waves(arch):
+    """The pipeline's scheduler admits in waves on the MoE models whose
+    expert capacity can drop at the slot count (deepseek, with MLA; grok,
+    with GQA, at its published capacity factor over 16 slots), ssm and
+    hybrid models: a dropping MoE token's experts depend on the other
+    rows of its step, and MLA, ssm and hybrid take one position for the
+    batch, so ``decode_step`` and a continuous scheduler refuse per-row
+    positions there. The reduced grok, whose capacity drops nothing,
+    admits continuously."""
+    _, port = _engines(arch)
+    slots = 16
+    if arch == "grok-1-314b":
+        assert _picked(port, 2) and TE.decode_rows_independent(port.cfg,
+                                                               batch=2)
+        cfg = dataclasses.replace(port.cfg, moe_capacity_factor=t_get_config(
+            arch).moe_capacity_factor)
+        assert TMoe.capacity(cfg, slots) < slots
+        port = TE.Engine(cfg, port.params, port.tok, max_len=MAX_LEN,
+                         chunk=CHUNK)
+    assert not TE.decode_rows_independent(port.cfg)
+    assert not TE.decode_rows_independent(port.cfg, batch=slots)
+    assert _picked(port, slots) is False
     per_row = TM.per_row_positions(port.cfg)
     assert per_row == (arch == "grok-1-314b")
     if not per_row:
@@ -538,8 +557,8 @@ def test_pipeline_admits_in_waves(arch):
             TM.decode_step(port.cfg, port.params,
                            torch.ones(2, 1, dtype=torch.long), cache,
                            torch.tensor([3, 5]))
-        with pytest.raises(ValueError, match="per-row"):
-            TE.BatchScheduler(port, batch_size=2, continuous=True)
+    with pytest.raises(ValueError, match="per-row"):
+        TE.BatchScheduler(port, batch_size=slots, continuous=True)
 
 
 def test_decode_step_keeps_dead_slot_rows(family):

@@ -863,6 +863,45 @@ def test_gpu_layer_pattern_decode_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_gpu_layer_pattern_continuous_admission_matches_waves(cuda):
+    """nemotron-3-nano-30b-a3b's ``reduced()`` stack on the card (B4
+    prefill, B3 decode over the bf16 cache): the continuous scheduler,
+    whose waiting requests take freed slots mid-flight at per-row
+    positions, gives each request the wave scheduler's greedy tokens, in
+    fewer chunks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tokenizer import Tokenizer
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import BatchScheduler, Engine, Request
+    texts = ["what is the height of aurora bridge",
+             "who founded the meridian institute of aurora bridge",
+             "where is the meridian bridge"]
+    tok = Tokenizer.from_texts(texts)
+    cfg = dataclasses.replace(reduced(get_config("nemotron-3-nano-30b-a3b")),
+                              vocab_size=tok.vocab_size)
+    params = _to(M.init_model(cfg, torch.Generator().manual_seed(0),
+                              dtype=torch.float32, device="cpu"), cuda)
+    e = Engine(cfg, params, tok, max_len=64, chunk=4)
+    prompts = [texts[0], texts[2], texts[1], texts[2].replace("where", "what"),
+               texts[0].replace("what", "where"), texts[1]]
+    max_news = [22, 5, 18, 9, 14, 6]
+    out, chunks = [], []
+    for continuous in (False, True):
+        sched = BatchScheduler(e, 3, continuous=continuous)
+        for i, (p, n) in enumerate(zip(prompts, max_news)):
+            sched.submit(Request(rid=i, prompt=p, max_new=n))
+        ran = 0
+        while sched.step_chunk() or sched.waiting:
+            ran += 1
+        out.append({r.rid: r.out_ids for r in sched.finished})
+        chunks.append(ran)
+    assert out[1] == out[0] and len(out[1]) == len(prompts)
+    assert chunks[1] < chunks[0] and max(sched.slot_uses) >= 2
+
+
+@pytest.mark.gpu
 def test_gpu_train_contrastive_matches_cpu(cuda):
     """Five steps of MiniLM contrastive training on the card (the plain
     attention under autograd, TF32 off) against the CPU from the same

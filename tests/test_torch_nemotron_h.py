@@ -25,6 +25,7 @@ reference keeps the cache's bf16 rounding as the port does).
 import dataclasses
 import importlib.util
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -37,7 +38,9 @@ from repro_torch.core.tokenizer import Tokenizer
 from repro_torch.models import layers as Lyr
 from repro_torch.models import model as M
 from repro_torch.models import moe as Moe
-from repro_torch.serving.engine import BatchScheduler, Engine, Request
+from repro_torch.serving.engine import (BatchScheduler, Engine, Request,
+                                        decode_rows_independent)
+from repro_torch.serving.scheduler import ServingPipeline
 
 ARCH = "nemotron-3-nano-30b-a3b"
 BENCH = Path(__file__).resolve().parents[1] / "storbench"
@@ -174,6 +177,127 @@ def test_waves_of_two_lengths_decode_the_reference_tokens():
         picked = lg.gather(1, torch.tensor(r.out_ids)[:, None])[:, 0]
         assert float((lg.max(1).values - picked).max()) <= TOL_SERVED
         assert len(r.out_ids) >= 2
+
+
+CONT_TEXTS = ["what is the height of aurora bridge",
+              "who founded the meridian institute of aurora bridge",
+              "where is the meridian bridge"]
+
+
+def _both_schedulers(e, prompts, max_news, slots=3):
+    """The wave and the continuous scheduler over ``slots`` slots and the
+    prompts: per rid the tokens of each, the continuous one's
+    ``admission.prefill`` spans and admissions per slot, and the chunks
+    each ran."""
+    out, chunks = [], []
+    trace.clear()
+    trace.enable()
+    try:
+        for continuous in (False, True):
+            sched = BatchScheduler(e, slots, continuous=continuous)
+            for i, (p, n) in enumerate(zip(prompts, max_news)):
+                sched.submit(Request(rid=i, prompt=p, max_new=n))
+            ran = 0
+            while sched.step_chunk() or sched.waiting:
+                ran += 1
+            out.append({r.rid: r.out_ids for r in sched.finished})
+            chunks.append(ran)
+            if continuous:
+                prefills = [x for x in trace.spans()
+                            if x.name == "admission.prefill"]
+            trace.clear()
+    finally:
+        trace.disable()
+        trace.clear()
+    return out, prefills, sched.slot_uses, chunks
+
+
+def test_continuous_admission_decodes_the_wave_tokens():
+    """Continuous admission on the pattern (bf16 cache, 3 slots, prompts
+    of three lengths, ``max_new`` 5-22): short requests free their slots
+    while long ones decode, and the waiting ones are prefilled into them
+    mid-flight, over the previous request's ``h``, ``conv`` and
+    ``k``/``v``. Each request's tokens are the wave scheduler's and the
+    reference's greedy ones."""
+    tok = Tokenizer.from_texts(CONT_TEXTS)
+    cfg = tiny()                       # bf16 cache, f32 weights
+    params = weights(cfg)
+    e = Engine(cfg, params, tok, max_len=48, chunk=4)
+    prompts = [CONT_TEXTS[0], CONT_TEXTS[2], CONT_TEXTS[1],
+               CONT_TEXTS[2].replace("where", "what"),
+               CONT_TEXTS[0].replace("what", "where"), CONT_TEXTS[1]]
+    max_news = [22, 5, 18, 9, 14, 6]
+    assert len({len(tok.encode(p, bos=True)) for p in prompts}) == 3
+    (waves, cont), prefills, uses, (n_waves, n_cont) = _both_schedulers(
+        e, prompts, max_news)
+    assert cont == waves and len(cont) == len(prompts)
+    assert [len(cont[i]) for i in range(len(prompts))] == max_news
+    assert n_cont < n_waves
+    assert len(prefills) == len(prompts) and max(uses) >= 2
+    assert any(x.attrs["mid_flight"] for x in prefills)
+    assert not prefills[0].attrs["mid_flight"]
+    c = file_of(cfg)
+    for rid, out in cont.items():
+        ids = tok.encode(prompts[rid], bos=True)
+        lg = REF.served_logits(c, params, ids, out,
+                               cache_dtype=torch.bfloat16)
+        picked = lg.gather(1, torch.tensor(out)[:, None])[:, 0]
+        assert float((lg.max(1).values - picked).max()) <= TOL_SERVED
+
+
+def _engine(cfg):
+    tok = Tokenizer.from_texts(CONT_TEXTS)
+    cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, "cpu")
+    return Engine(cfg, params, tok, max_len=32, chunk=4)
+
+
+@pytest.mark.parametrize("cfg,independent", [
+    (tiny(), True),
+    # 16 tokens' assignments over 8 routed experts, 2 each: capacity 8
+    (tiny(moe_capacity_factor=1.0), False),
+    (reduced(get_config("deepseek-v2-lite-16b")), False),
+], ids=["pattern_no_drop", "pattern_drops", "deepseek"])
+def test_decode_rows_independent_at_the_slot_count(cfg, independent):
+    """At 16 slots: the pattern whose capacity drops nothing admits
+    continuously; the same pattern with a capacity under 16, and the MLA
+    model, admit in waves, and a continuous scheduler refuses them."""
+    slots = 16
+    assert decode_rows_independent(cfg, batch=slots) is independent
+    assert M.per_row_positions(cfg) is bool(cfg.layer_pattern)
+    if cfg.layer_pattern:
+        assert (Moe.capacity(cfg, slots) >= slots) is independent
+    e = _engine(cfg)
+    if independent:
+        assert BatchScheduler(e, slots, continuous=True).continuous
+    else:
+        with pytest.raises(ValueError, match="independent decode rows"):
+            BatchScheduler(e, slots, continuous=True)
+
+
+def test_the_cells_models_admit_as_designed():
+    """At the cells' 32 slots: nemotron's held share admits continuously
+    (capacity 33), deepseek in waves (MLA, and capacity 8), starcoder2
+    continuously, as before layer patterns did."""
+    nemo = dataclasses.replace(get_config(ARCH), n_experts=64)
+    assert Moe.capacity(nemo, 32) == 33
+    assert decode_rows_independent(nemo, batch=32)
+    ds = get_config("deepseek-v2-lite-16b")
+    assert Moe.capacity(ds, 32) == 8
+    assert not decode_rows_independent(ds, batch=32)
+    assert decode_rows_independent(get_config("starcoder2-7b"), batch=32)
+    assert decode_rows_independent(get_config("starcoder2-7b"))
+
+
+def test_pipeline_admits_the_pattern_continuously():
+    """``ServingPipeline`` builds a continuous scheduler for the pattern
+    at the cell's 32 slots (its decode loop run to the sentinel)."""
+    pipe = ServingPipeline(types.SimpleNamespace(engine=_engine(tiny())),
+                           decode_slots=32)
+    pipe._decode_q.put(None)
+    pipe._decode_loop({})
+    assert pipe.scheduler.continuous and pipe.scheduler.B == 32
 
 
 def _moe_layer(seed=3):
