@@ -282,8 +282,12 @@ def _moe(plan, p, ln, x):
 
 def _block(plan, p, x, positions, mrope, kind, enc_out):
     """One layer on the mesh (``block_fullseq``'s counterpart). Returns
-    (x, the MoE aux loss or None)."""
+    (x, the MoE aux loss or None). A layer pattern's ``experts`` and
+    ``attn`` blocks have no mesh implementation."""
     cfg, run = plan.cfg, plan.run
+    if kind not in ("ssm", "dense", "moe", "moe_dense0", "dec", "enc"):
+        raise NotImplementedError(f"{cfg.name}: mesh training has no "
+                                  f"{kind!r} block")
     if kind == "ssm":
         pl = _use_tree(p, lambda *_: False)
 
@@ -349,8 +353,9 @@ def _encode(plan, params, frames):
 
 
 def _stack(plan, params, tokens, positions, mrope, frames):
-    """Embed and run every layer (``model._run_stack``). Returns (x, the
-    MoE aux loss summed over layers)."""
+    """Embed and run every layer of ``model.layer_plan``
+    (``model._run_stack``). Returns (x, the MoE aux loss summed over
+    layers)."""
     cfg, mesh = plan.cfg, plan.mesh
     x = _embed(plan, params["embed"]["w"], tokens)
     aux = torch.zeros((), device=mesh.devices.flat[0])
@@ -361,25 +366,11 @@ def _stack(plan, params, tokens, positions, mrope, frames):
             x.shape[1], cfg.d_model, x.device).to(x.dtype)[None], mesh, x)
     if plan.sp:
         x = _chunk(plan, x)
-
-    def layer(p, kind, **kw):
-        nonlocal x, aux
-        x, a = _layer(plan, p, x, positions, mrope, kind, **kw)
+    for e in M.layer_plan(cfg):
+        x, a = _layer(plan, M._params_at(params, e.params), x, positions,
+                      mrope, e.kind, enc_out)
         if a is not None:
             aux = aux + a.to(aux.device)
-
-    if cfg.family == "hybrid":
-        k_every = cfg.hybrid_attn_every
-        for i, lp in enumerate(params["blocks"]):
-            if k_every and i % k_every == 0:
-                layer(params["shared"], "dense")
-            layer(lp, "ssm")
-    elif cfg.is_encoder_decoder:
-        for lp in params["blocks"]:
-            layer(lp, "dec", enc_out=enc_out)
-    else:
-        for kind, lp in M._layers(cfg, params):
-            layer(lp, kind)
     return _full(plan, x), aux
 
 

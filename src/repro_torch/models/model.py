@@ -21,6 +21,12 @@ Conventions
   like ``"blocks"``), ``"shared"`` (zamba2's one shared block, a single
   layer's dict) and ``"enc_blocks"``/``"enc_norm"`` (whisper's encoder).
   ``models/convert.py`` copies a reference pytree in and back out.
+* ``layer_plan(cfg)`` is the one description of a config's stack: each
+  layer's block kind, where its params sit and which cache leaves it
+  reads. ``init_model``, the full-sequence stack (``forward``,
+  ``lm_loss``, ``prefill``), ``cache_struct``, ``decode_step`` and the
+  mesh's ``train_parallel`` read it; a new stack shape is described
+  there alone.
 * ``RunCfg`` carries the implementation choices: the reference's
   single-device knobs of a full-sequence pass and its mesh knobs
   (``mesh``, ``decode_attn="seq_sharded"``, ``moe_impl="ep"``, the axes).
@@ -65,6 +71,7 @@ Conventions
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -172,22 +179,78 @@ def init_block(gen, cfg, dtype, device, kind="dense"):
     return p
 
 
-# a layer pattern's letters: (block kind, the mixer its ``decode.mixer``
-# span names, its decode-cache leaves)
-PATTERN = {"M": ("ssm", "ssm", ("h", "conv")),
-           "E": ("experts", "moe", ()),
-           "*": ("attn", "attn", ("k", "v"))}
+# ---------------------------------------------------------------------------
+# The layer plan: each config's stack, described once
+# ---------------------------------------------------------------------------
 
 
-def main_block_kind(cfg) -> str:
-    return {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
-            "hybrid": "ssm", "encdec": "dec"}[cfg.family]
+@dataclasses.dataclass(frozen=True)
+class Layer:
+    """One entry of a layer plan. ``kind`` as ``init_block``,
+    ``block_fullseq`` and ``block_decode`` take it; ``params`` where its
+    params sit (``("blocks", i)``, ``("dense0", i)`` or ``("shared",)``);
+    ``cache`` the decode-cache leaves it reads, as (name in its slice,
+    cache leaf, index along the leaf's leading dim); ``mixer`` the kind
+    of its ``decode.mixer`` span (a layer pattern's layers only)."""
+    kind: str
+    params: Tuple
+    cache: Tuple = ()
+    mixer: Optional[str] = None
 
 
-def n_shared_attn(cfg) -> int:
-    """# shared-attention invocations in a hybrid stack (layers i%k==0)."""
-    k = cfg.hybrid_attn_every
-    return -(-cfg.n_layers // k) if k else 0
+# a layer pattern's letters: (block kind, mixer, cache leaves)
+_LETTERS = {"M": ("ssm", "ssm", ("h", "conv")),
+            "E": ("experts", "moe", ()),
+            "*": ("attn", "attn", ("k", "v"))}
+
+
+# the decode cache's leaves in the order ``cache_struct`` and ``prefill``
+# give them; those with a sequence dim, which ``prefill`` pads and the
+# seq-sharded decode attends (CACHE_RULES' SEQ rows)
+CACHE_LEAVES = ("ckv", "krope", "h", "conv", "k", "v", "xk", "xv", "ak",
+                "av")
+SEQ_LEAVES = ("k", "v", "ak", "av", "ckv", "krope")
+
+
+@functools.lru_cache(maxsize=64)
+def layer_plan(cfg) -> Tuple[Layer, ...]:
+    """The stack in running order: a layer pattern's blocks, each kind's
+    cache leaves indexed within that kind; zamba2's Mamba-2 layers with
+    the one shared attention block before every ``hybrid_attn_every``-th,
+    reading ``ak``/``av`` at its invocation; else a uniform stack
+    (deepseek's ``dense0`` layers first) whose leaves are indexed by
+    layer. The encoder-decoder's encoder is not part of it."""
+    if cfg.layer_pattern:
+        seen, out = dict.fromkeys(_LETTERS, 0), []
+        for i, c in enumerate(cfg.layer_pattern):
+            kind, mixer, leaves = _LETTERS[c]
+            out.append(Layer(kind, ("blocks", i),
+                             tuple((n, n, seen[c]) for n in leaves), mixer))
+            seen[c] += 1
+        return tuple(out)
+    if cfg.family == "hybrid":
+        k, out = cfg.hybrid_attn_every, []
+        for i in range(cfg.n_layers):
+            if k and i % k == 0:
+                out.append(Layer("dense", ("shared",),
+                                 (("k", "ak", i // k), ("v", "av", i // k))))
+            out.append(Layer("ssm", ("blocks", i),
+                             (("h", "h", i), ("conv", "conv", i))))
+        return tuple(out)
+    attn = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+    kind, leaves = {"dense": ("dense", attn), "vlm": ("dense", attn),
+                    "moe": ("moe", attn), "ssm": ("ssm", ("h", "conv")),
+                    "encdec": ("dec", attn + ("xk", "xv"))}[cfg.family]
+    n0 = cfg.first_dense_layers if cfg.family == "moe" else 0
+    return tuple(Layer(kind if i >= n0 else "moe_dense0",
+                       ("blocks", i - n0) if i >= n0 else ("dense0", i),
+                       tuple((n, n, i) for n in leaves))
+                 for i in range(cfg.n_layers))
+
+
+def _params_at(params, where):
+    p = params[where[0]]
+    return p[where[1]] if len(where) > 1 else p
 
 
 def init_model(cfg, generator: torch.Generator, dtype=None, device="cuda"):
@@ -204,39 +267,20 @@ def init_model(cfg, generator: torch.Generator, dtype=None, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = Lyr.dense_init(generator, cfg.d_model, vp, dtype,
                                            device)
-    n_dense0 = _n_dense0(cfg)
-    kinds = [PATTERN[c][0] for c in cfg.layer_pattern] or \
-        [main_block_kind(cfg)] * (cfg.n_layers - n_dense0)
-    params["blocks"] = [init_block(generator, cfg, dtype, device, kind)
-                        for kind in kinds]
-    if n_dense0:
-        params["dense0"] = [init_block(generator, cfg, dtype, device,
-                                       "moe_dense0")
-                            for _ in range(n_dense0)]
-    if cfg.family == "hybrid" and not cfg.layer_pattern:
-        params["shared"] = init_block(generator, cfg, dtype, device, "dense")
+    kinds = {e.params: e.kind for e in layer_plan(cfg)}
+    # the tree's order (deepseek's blocks before its dense0), which the
+    # generator's draws and storbench's weight fill follow
+    for group in ("blocks", "dense0", "shared"):
+        made = [init_block(generator, cfg, dtype, device, kinds[w])
+                for w in sorted(w for w in kinds if w[0] == group)]
+        if made:
+            params[group] = made[0] if group == "shared" else made
     if cfg.is_encoder_decoder:
         params["enc_blocks"] = [init_block(generator, cfg, dtype, device,
                                            "enc")
                                 for _ in range(cfg.n_encoder_layers)]
         params["enc_norm"] = Lyr.rmsnorm_init(cfg.d_model, dtype, device)
     return params
-
-
-def _n_dense0(cfg) -> int:
-    return cfg.first_dense_layers if cfg.family == "moe" else 0
-
-
-def _layers(cfg, params):
-    """(kind, params) of every layer of a uniform stack or a layer
-    pattern, in order: deepseek's ``dense0`` layers first, then
-    ``blocks``."""
-    if cfg.layer_pattern:
-        return [(PATTERN[c][0], p)
-                for c, p in zip(cfg.layer_pattern, params["blocks"])]
-    kind = main_block_kind(cfg)
-    return [("moe_dense0", p) for p in params.get("dense0", [])] + \
-        [(kind, p) for p in params["blocks"]]
 
 
 # ---------------------------------------------------------------------------
@@ -623,13 +667,6 @@ def _encode(cfg, params, frames, run=KERNEL):
 # ---------------------------------------------------------------------------
 
 
-def _stack(entries):
-    """[{name: (B, ...)}] per layer -> {name: (L, B, ...)}, L the layers
-    that have the leaf (a layer pattern's kinds each keep their own)."""
-    names = dict.fromkeys(n for e in entries for n in e)
-    return {n: torch.stack([e[n] for e in entries if n in e]) for n in names}
-
-
 def _pad_seq(t, max_len: int):
     """(L, B, S, ...) zero-padded to (L, B, max_len, ...)."""
     S = t.shape[2]
@@ -642,11 +679,13 @@ def _pad_seq(t, max_len: int):
 
 def _run_stack(cfg, params, tokens, run, *, positions, frames=None,
                mrope_positions=None, with_aux=False, build_cache=False):
-    """Embed ``tokens`` and run every layer. Returns (x (B,S,d), the MoE
-    aux loss summed over layers (None unless ``with_aux``), the cache
-    entries per layer kind (None unless ``build_cache``))."""
+    """Embed ``tokens`` and run every layer of the plan. Returns (x
+    (B,S,d), the MoE aux loss summed over layers (None unless
+    ``with_aux``), each cache leaf stacked over the entries that read it
+    (None unless ``build_cache``))."""
     x = embed_tokens(cfg, params, tokens)
     aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
+    enc_out = None
     if cfg.is_encoder_decoder:
         if frames is None:
             raise ValueError(f"{cfg.name}: the encoder-decoder needs frames "
@@ -654,41 +693,26 @@ def _run_stack(cfg, params, tokens, run, *, positions, frames=None,
         enc_out = _encode(cfg, params, frames, run)
         x = x + _sinusoid(tokens.shape[1], cfg.d_model, x.device).to(
             x.dtype)[None]
-    entries, attn = [], []
-
     remat = run.remat and not build_cache and torch.is_grad_enabled()
-
-    def layer(p, kind, **kw):
-        nonlocal x, aux
+    leaves = {}
+    for e in layer_plan(cfg):
+        p = _params_at(params, e.params)
         if remat:    # the layer's activations are recomputed in backward
-            x, a, kv = checkpoint(block_fullseq, cfg, p, x, positions, kind,
+            x, a, kv = checkpoint(block_fullseq, cfg, p, x, positions, e.kind,
                                   run, with_aux=with_aux, use_reentrant=False,
-                                  **kw)
+                                  mrope_positions=mrope_positions,
+                                  enc_out=enc_out)
         else:
-            x, a, kv = block_fullseq(cfg, p, x, positions, kind, run,
-                                     with_aux=with_aux, **kw)
+            x, a, kv = block_fullseq(cfg, p, x, positions, e.kind, run,
+                                     with_aux=with_aux, enc_out=enc_out,
+                                     mrope_positions=mrope_positions)
         if with_aux:
             aux = aux + a
-        return kv
-
-    if cfg.family == "hybrid" and not cfg.layer_pattern:
-        k_every = cfg.hybrid_attn_every
-        for i, lp in enumerate(params["blocks"]):
-            if k_every and i % k_every == 0:
-                attn.append(layer(params["shared"], "dense"))
-            entries.append(layer(lp, "ssm"))
-    elif cfg.is_encoder_decoder:
-        for lp in params["blocks"]:
-            entries.append(layer(lp, "dec", enc_out=enc_out))
-    else:
-        for kind, lp in _layers(cfg, params):
-            entries.append(layer(lp, kind, mrope_positions=mrope_positions))
-    cache = None
-    if build_cache:
-        cache = _stack(entries)
-        if attn:
-            akv = _stack(attn)
-            cache["ak"], cache["av"] = akv["k"], akv["v"]
+        if build_cache:
+            for n, leaf, _ in e.cache:
+                leaves.setdefault(leaf, []).append(kv[n])
+    cache = {n: torch.stack(leaves[n]) for n in CACHE_LEAVES
+             if n in leaves} if build_cache else None
     return x, aux, cache
 
 
@@ -746,48 +770,32 @@ def prefill(cfg, params, batch, run=KERNEL, max_len: Optional[int] = None):
                              frames=batch.get("frames"),
                              mrope_positions=batch.get("mrope_positions"),
                              build_cache=True)
-    if cfg.family != "ssm":
-        # xk/xv keep the encoder's length; the SSM leaves have no seq dim
-        cache = {n: t if n in ("h", "conv", "xk", "xv") else
-                 _pad_seq(t, max_len) for n, t in cache.items()}
+    # xk/xv keep the encoder's length; the SSM leaves have no seq dim
+    cache = {n: _pad_seq(t, max_len) if n in SEQ_LEAVES else t
+             for n, t in cache.items()}
     if _seq_sharded(run):
         place_cache(cache, run)
     return lm_logits(cfg, run, params, x[:, -1:]), cache
 
 
 def cache_struct(cfg, batch, max_len, dtype=None):
-    """{name: (shape, dtype)} of the decode cache (``h`` always f32)."""
+    """{name: (shape, dtype)} of the decode cache (``h`` always f32): each
+    leaf the plan reads, its leading dim the entries that read it."""
     dt = Lyr.torch_dtype(dtype or cfg.dtype)
-    L, B, M = cfg.n_layers, batch, max_len
-    if cfg.use_mla:
-        return {"ckv": ((L, B, M, cfg.kv_lora_rank), dt),
-                "krope": ((L, B, M, cfg.qk_rope_head_dim), dt)}
-    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
-    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    B, M = batch, max_len
+    heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    N = cfg.ssm_state
     C = cfg.d_inner_ssm + 2 * cfg.ssm_n_groups * N
-    if cfg.layer_pattern:
-        n_ssm, n_attn = (cfg.layer_pattern.count(c) for c in "M*")
-        return {"h": ((n_ssm, B, H, P, N), torch.float32),
-                "conv": ((n_ssm, B, cfg.ssm_conv - 1, C), dt),
-                "k": ((n_attn, B, M) + kv, dt),
-                "v": ((n_attn, B, M) + kv, dt)}
-    if cfg.family in ("dense", "vlm", "moe"):
-        return {"k": ((L, B, M) + kv, dt), "v": ((L, B, M) + kv, dt)}
-    if cfg.is_encoder_decoder:
-        Te = cfg.encoder_seq
-        return {"k": ((L, B, M) + kv, dt), "v": ((L, B, M) + kv, dt),
-                "xk": ((L, B, Te) + kv, dt), "xv": ((L, B, Te) + kv, dt)}
-    out = {"h": ((L, B, H, P, N), torch.float32),
-           "conv": ((L, B, cfg.ssm_conv - 1, C), dt)}
-    if cfg.family == "hybrid":
-        I = n_shared_attn(cfg)
-        out["ak"] = ((I, B, M) + kv, dt)
-        out["av"] = ((I, B, M) + kv, dt)
-    return out
-
-
-# the cache leaves the seq-sharded decode attends (CACHE_RULES' SEQ rows)
-SEQ_LEAVES = ("k", "v", "ak", "av", "ckv", "krope")
+    kv, xkv = ((B, M) + heads, dt), ((B, cfg.encoder_seq) + heads, dt)
+    one = {"ckv": ((B, M, cfg.kv_lora_rank), dt),
+           "krope": ((B, M, cfg.qk_rope_head_dim), dt),
+           "h": ((B, cfg.n_ssm_heads, cfg.ssm_head_dim, N), torch.float32),
+           "conv": ((B, cfg.ssm_conv - 1, C), dt), "k": kv, "v": kv,
+           "xk": xkv, "xv": xkv, "ak": kv, "av": kv}
+    n = collections.Counter(leaf for e in layer_plan(cfg)
+                            for _, leaf, _ in e.cache)
+    return {leaf: ((n[leaf],) + one[leaf][0], one[leaf][1])
+            for leaf in CACHE_LEAVES if n[leaf]}
 
 
 def place_cache(cache, run):
@@ -853,49 +861,21 @@ def decode_step(cfg, params, token, cache, cache_len, run=RunCfg(),
     else:
         # a new tensor every step: B3's callers may keep it past the step
         lengths = cache_len.to(torch.int32, copy=True)
-    if cfg.layer_pattern:
-        return lm_logits(cfg, run, params, _decode_pattern(
-            cfg, params, x, cache, cache_len, lengths, live, run)), cache
-    if cfg.family == "hybrid":
-        k_every, inv = cfg.hybrid_attn_every, 0
-        for i, lp in enumerate(params["blocks"]):
-            if k_every and i % k_every == 0:
-                x = block_decode(cfg, params["shared"], x,
-                                 {"k": cache["ak"][inv],
-                                  "v": cache["av"][inv]},
-                                 cache_len, lengths, live, run=run)
-                inv += 1
-            x = block_decode(cfg, lp, x, {"h": cache["h"][i],
-                                          "conv": cache["conv"][i]},
-                             cache_len, lengths, live, kind="ssm", run=run)
-        return lm_logits(cfg, run, params, x), cache
     if cfg.is_encoder_decoder:
         # the position row at cache_len, clamped past the end as the
         # reference's dynamic_slice is
         M = cache["k"].shape[2]
         x = x + _sinusoid(M, cfg.d_model, x.device)[
             min(cache_len, M - 1)].to(x.dtype)
-    for i, (kind, lp) in enumerate(_layers(cfg, params)):
-        x = block_decode(cfg, lp, x, {n: t[i] for n, t in cache.items()},
-                         cache_len, lengths, live, kind=kind,
+    for i, e in enumerate(layer_plan(cfg)):
+        ts = trace.start() if e.mixer else None
+        x = block_decode(cfg, _params_at(params, e.params), x,
+                         {n: cache[leaf][j] for n, leaf, j in e.cache},
+                         cache_len, lengths, live, kind=e.kind,
                          mrope_positions=mrope_positions, run=run)
-    return lm_logits(cfg, run, params, x), cache
-
-
-def _decode_pattern(cfg, params, x, cache, cache_len, lengths, live, run):
-    """One token through a layer pattern's blocks, each reading its own
-    kind's cache leaves at its index among that kind's layers; a
-    ``decode.mixer`` span a layer while the recorder records."""
-    seen = {}
-    for i, (c, lp) in enumerate(zip(cfg.layer_pattern, params["blocks"])):
-        kind, mixer, leaves = PATTERN[c]
-        j = seen[c] = seen.get(c, -1) + 1
-        ts = trace.start()
-        x = block_decode(cfg, lp, x, {n: cache[n][j] for n in leaves},
-                         cache_len, lengths, live, kind=kind, run=run)
         if ts is not None:
-            trace.end(ts, "decode.mixer", kind=mixer, layer=i)
-    return x
+            trace.end(ts, "decode.mixer", kind=e.mixer, layer=i)
+    return lm_logits(cfg, run, params, x), cache
 
 
 def serve_step(cfg, params, token, cache, cache_len: int, rng, run=RunCfg(),

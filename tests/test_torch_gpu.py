@@ -731,15 +731,13 @@ def _family_cfg(arch, tok):
 
 def _family_launches(cfg, steps):
     """(B4, B3) launches of one prefill and of ``steps`` decode steps:
-    B4 per attention layer (MLA's expanded heads included), B3 per GQA
-    decode layer (MLA decode is plain; mamba2 has no attention)."""
+    B4 per attention entry of the layer plan (MLA's expanded heads
+    included; zamba2's shared block at each invocation), B3 per GQA
+    decode entry (MLA decode is plain; mamba2 has no attention)."""
     from repro_torch.models import model as M
-    if cfg.family == "ssm":
-        return 0, 0
-    if cfg.family == "hybrid":
-        n = M.n_shared_attn(cfg)
-        return n, steps * n
-    return cfg.n_layers, 0 if cfg.use_mla else steps * cfg.n_layers
+    n = sum(any(name in ("k", "ckv") for name, _, _ in e.cache)
+            for e in M.layer_plan(cfg))
+    return n, 0 if cfg.use_mla else steps * n
 
 
 @pytest.mark.gpu
